@@ -4,15 +4,27 @@
     python3 chip_smoke.py            # every phase, one card
 
 Phases, in order; any failure raises and the script exits non-zero:
-  card     the card's name and power limit (nvidia-smi)
-  build    nvcc builds every kernel from the sources in the checkout
-  kernel   each kernel at the main path's shapes against its plain version,
-           with times of the kernel, the plain version, one PyTorch library
-           call (a yardstick only) and the card's bound
-  parity   a reduced-depth fp32 pipeline run on the card against the same run
-           on the CPU (decoded-video PSNR)
-  full     the streamed pipeline at full SD1.5 width in bf16 at 512x512 with
-           seeded random weights; checks the output and the kernel launches
+  card          the card's name and power limit (nvidia-smi)
+  build         nvcc builds every kernel from the sources in the checkout
+  kernel        each kernel at the main paths' shapes against its plain
+                version: K1's forward at the inference shapes; at the training
+                shapes K1 with its gradient (forward with log-sum-exp, dk/dv
+                and dq kernels) through FlashAttention; times of each kernel,
+                its plain version, one PyTorch library call (a yardstick only)
+                and the card's bound
+  parity        a reduced-depth fp32 pipeline run on the card against the same
+                run on the CPU (decoded-video PSNR)
+  train_parity  the same reduced-depth models in fp32 at stage 3: loss and
+                gradients, then 2 AdamW and 2 8-bit-Adam train steps, on the
+                card against the CPU
+  full          the streamed pipeline at full SD1.5 width in bf16 at 512x512
+                with seeded random weights; checks the output and the kernel
+                launches
+  train_full    5 train steps of stage 2 (configs/stage_2.yaml's values) at
+                full SD1.5 width in bf16, 20 frames at 512x512, seeded random
+                weights; checks losses, frozen and moved parameters, and the
+                kernel launches by shape against those reckoned from the
+                stage's trainability
 
 It prints a `kernels` JSON line and, as its last line, the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -46,6 +58,22 @@ K1_SHAPES = [
 # checks off the main path: fp32 (the parity phase's type) and D=160
 K1_EXTRA = [
     ("fp32 attn1@32x32", 2, 1024, 1024, 640, 8, "float32"),
+    ("bf16 D=160", 2, 1024, 1024, 1280, 8, "bfloat16"),
+]
+
+
+# K1 with its gradient at the training path's shapes: stage 2 at 512x512 (64x64
+# latent), batch 1, 20 frames. (name, B, Lq, Lk, H*D, H)
+TRAIN_FRAMES = 20
+TRAIN_K1_SHAPES = [
+    ("train attn1@64x64", TRAIN_FRAMES, 4096, 4096, 320, 8),
+    ("train attn1_5@64x64 grouped", 1, TRAIN_FRAMES * 4096, 4096, 320, 8),
+    ("train attn1@32x32", TRAIN_FRAMES, 1024, 1024, 640, 8),
+    ("train attn1_5@32x32 grouped", 1, TRAIN_FRAMES * 1024, 1024, 640, 8),
+]
+# off the training path: fp32 at the train_parity phase's head dim, and D=160
+TRAIN_K1_EXTRA = [
+    ("fp32 D=40", 4, 1024, 1024, 80, 2, "float32"),
     ("bf16 D=160", 2, 1024, 1024, 1280, 8, "bfloat16"),
 ]
 
@@ -85,12 +113,32 @@ def cuda_time_ms(torch, fn, min_total_ms: float = 200.0, max_iters: int = 50) ->
     return start.elapsed_time(end) / iters
 
 
-def k1_bound_ms(b, lq, lk, inner, heads, itemsize, peak):
-    d = inner // heads
-    ops = 4.0 * b * heads * lq * lk * d
-    nbytes = float(itemsize) * (2 * b * lq * inner + 2 * b * lk * inner)
+def bound_ms(ops: float, nbytes: float, peak: float):
+    """The card's least time for `ops` operations at `peak` and `nbytes` at the
+    HBM rate: (ms, what bounds it)."""
     t_ops, t_bytes = ops / peak, nbytes / HBM_BPS
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound_ms(b, lq, lk, inner, heads, itemsize, peak):
+    d = inner // heads
+    return bound_ms(4.0 * b * heads * lq * lk * d,
+                    float(itemsize) * (2 * b * lq * inner + 2 * b * lk * inner), peak)
+
+
+def k1_grad_bounds(b, lq, lk, inner, heads, itemsize, peak) -> dict:
+    """Bounds of K1 under a gradient, each input read once and each output
+    written once: the forward with its fp32 log-sum-exp (4 n operations), the
+    dk/dv kernel (S, dP, dv, dk: 8 n), the dq kernel (S, dP, dq: 6 n) and the
+    backward pair done at once (10 n), n = B*H*Lq*Lk*D."""
+    n = float(b * heads * lq * lk * (inner // heads))
+    q_bytes, k_bytes = float(itemsize) * b * lq * inner, float(itemsize) * b * lk * inner
+    row_stats = 4.0 * b * heads * lq  # one fp32 per query row (lse or di)
+    return dict(
+        fwd=bound_ms(4 * n, 2 * q_bytes + 2 * k_bytes + row_stats, peak),
+        dkv=bound_ms(8 * n, 2 * q_bytes + 4 * k_bytes + 2 * row_stats, peak),
+        dq=bound_ms(6 * n, 3 * q_bytes + 2 * k_bytes + 2 * row_stats, peak),
+        pair=bound_ms(10 * n, 3 * q_bytes + 4 * k_bytes + 2 * row_stats, peak))
 
 
 def within_k1_bar(bf16: bool, max_err: float, mean_err: float, ref_std: float):
@@ -104,6 +152,30 @@ def within_k1_bar(bf16: bool, max_err: float, mean_err: float, ref_std: float):
         max_bar, mean_bar = min(1e-4, 1e-3 * ref_std), 1e-5 * ref_std
     return (max_err <= max_bar and mean_err <= mean_bar,
             f"max<={max_bar:.2e}, mean<={mean_bar:.2e} vs fp32 plain (std(ref) {ref_std:.3e})")
+
+
+def within_k1_grad_bar(bf16: bool, max_err: float, mean_err: float, ref_std: float,
+                       ref_max: float):
+    """K1's bar for its gradients (and its forward under a gradient) against
+    the fp32 plain version. A gradient's tails reach 20-40 std(ref), where
+    the bf16 result's own rounding exceeds 0.1 std(ref) (rounding the fp32
+    reference to bf16 alone uses up to 70% of that bar at the training
+    shapes, and PyTorch's SDPA backward lands at the kernel's max errors), so
+    the max bar also admits one bf16 ulp at max|ref|; the mean bar is K1's.
+    In fp32 the bars are 1e-4 and 3e-6 of std(ref): K1's 1e-3 and 1e-5,
+    tightened where the scalar kernels measured 6.6e-7 and 3.2e-8 at
+    std(ref) 0.052."""
+    if bf16:
+        ulp = 2.0 ** (math.floor(math.log2(max(ref_max, 1e-30))) - 7)
+        max_bar, mean_bar = min(2e-2, max(0.1 * ref_std, ulp)), min(2e-3, 0.01 * ref_std)
+    else:
+        max_bar, mean_bar = 1e-4 * ref_std, 3e-6 * ref_std
+    return (max_err <= max_bar and mean_err <= mean_bar,
+            f"max<={max_bar:.2e}, mean<={mean_bar:.2e} vs fp32 plain (std(ref) {ref_std:.3e}, "
+            f"max|ref| {ref_max:.3e})")
+
+
+LSE_BAR = 2e-5  # fp32 log-sum-exp against the plain version (measured <= 2e-6)
 
 
 def kernel_phase(torch) -> dict:
@@ -157,7 +229,118 @@ def kernel_phase(torch) -> dict:
             raise PhaseError(f"K1 disagrees with its plain version at {name}: max {max_err:.3e}, "
                              f"mean {mean_err:.3e}, finite {finite} ({tol})")
         torch.cuda.empty_cache()
-    return dict(rows=rows)
+    return dict(rows=rows, grad_rows=grad_kernel_rows(torch, gen))
+
+
+def grad_kernel_rows(torch, gen) -> list:
+    """K1 with its gradient at every training shape: flash_sdpa on inputs that
+    require a gradient (FlashAttention), .backward with a fixed do; the
+    forward's output and log-sum-exp and dq, dk, dv against the fp32 plain
+    versions; then each kernel timed alone."""
+    import torch.nn.functional as F
+    from vexpress_torch.ops import flash, launches
+
+    dev = torch.device("cuda")
+    rows = []
+    cases = ([(n, b, lq, lk, i, h, "bfloat16") for n, b, lq, lk, i, h in TRAIN_K1_SHAPES]
+             + TRAIN_K1_EXTRA)
+    for name, b, lq, lk, inner, heads, dtype_name in cases:
+        dtype = getattr(torch, dtype_name)
+        bf16 = dtype == torch.bfloat16
+        d = inner // heads
+        scale = d**-0.5
+        q, k, v, do = (torch.randn(b, n, inner, generator=gen, device=dev).to(dtype)
+                       for n in (lq, lk, lk, lq))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        launches.reset()
+        out = flash.flash_sdpa(*leaves, heads)
+        out.backward(do)
+        torch.cuda.synchronize()
+        ran = {key: n for key, n in launches.counts.items() if n}
+        if out.grad_fn is None or ran != {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}:
+            raise PhaseError(f"{name}: flash_sdpa under a gradient launched {ran}")
+        with torch.no_grad():
+            no_grad_out = flash.flash_sdpa(q, k, v, heads)
+        if not torch.equal(no_grad_out, out.detach()):
+            raise PhaseError(f"{name}: the forward with and without the log-sum-exp disagree")
+        out_k, lse = flash.flash_sdpa_fwd(q, k, v, heads, scale)
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        ref_out, ref_lse = flash.flash_sdpa_reference(qf, kf, vf, heads, return_lse=True)
+        refs = dict(zip(("dq", "dk", "dv"),
+                        flash.flash_sdpa_bwd_reference(qf, kf, vf, ref_out, ref_lse, dof, heads)))
+        qh, kh, vh, doh = (x.reshape(x.shape[0], x.shape[1], heads, d).transpose(1, 2)
+                           .contiguous() for x in (q, k, v, do))
+        qh, kh, vh = (x.requires_grad_() for x in (qh, kh, vh))
+        sdpa_out = F.scaled_dot_product_attention(qh, kh, vh)
+        sdpa = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(sdpa_out, (qh, kh, vh), doh)))
+        sdpa["out"] = sdpa_out.detach()
+        errs, fails = {}, []
+        for what, got, ref in (("out", out_k, ref_out), ("dq", leaves[0].grad, refs["dq"]),
+                               ("dk", leaves[1].grad, refs["dk"]),
+                               ("dv", leaves[2].grad, refs["dv"])):
+            err = (got.float() - ref).abs()
+            mx, mean, std = float(err.max()), float(err.mean()), float(ref.std())
+            ref_max = float(ref.abs().max())
+            lib = sdpa[what].transpose(1, 2).reshape(ref.shape).float() - ref
+            ok, tol = within_k1_grad_bar(bf16, mx, mean, std, ref_max)
+            errs[what] = dict(max_abs_err=mx, mean_abs_err=mean, ref_std=std, ref_max=ref_max,
+                              sdpa_max_abs_err=float(lib.abs().max()),
+                              sdpa_mean_abs_err=float(lib.abs().mean()), tolerance=tol)
+            if not (ok and bool(torch.isfinite(got).all())):
+                fails.append(f"{what} max {mx:.3e} mean {mean:.3e} ({tol})")
+        lse_err = float((lse - ref_lse).abs().max())
+        errs["lse"] = dict(max_abs_err=lse_err, tolerance=f"max<={LSE_BAR:.0e}")
+        if lse_err > LSE_BAR:
+            fails.append(f"lse max {lse_err:.3e}")
+        del qf, kf, vf, dof, ref_out, ref_lse, refs, leaves, out, no_grad_out, sdpa, sdpa_out
+        if fails:
+            raise PhaseError(f"K1's gradient disagrees with its plain version at {name}: "
+                             + "; ".join(fails))
+
+        di = flash.bwd_di(do, out_k, heads)
+        fwd_ms = cuda_time_ms(torch, lambda: flash.flash_sdpa_fwd(q, k, v, heads, scale))
+        dkv_ms = cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
+                                                              need_dq=False))
+        dq_ms = cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
+                                                             need_dkv=False))
+        plain_fwd_ms = cuda_time_ms(
+            torch, lambda: flash.flash_sdpa_reference(q, k, v, heads, return_lse=True),
+            max_iters=3)
+        plain_bwd_ms = cuda_time_ms(
+            torch, lambda: flash.flash_sdpa_bwd_reference(q, k, v, out_k, lse, do, heads, scale),
+            max_iters=3)
+        with torch.no_grad():
+            sdpa_fwd_ms = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), doh)
+
+        sdpa_fwd_bwd_ms = cuda_time_ms(torch, sdpa_fwd_bwd)
+        del qh, kh, vh, doh, di
+        bounds = k1_grad_bounds(b, lq, lk, inner, heads, q.element_size(),
+                                PEAK_BF16 if bf16 else PEAK_FP32)
+        del q, k, v, do, out_k, lse
+        row = dict(shape=name, dtype=dtype_name, B=b, Lq=lq, Lk=lk, H=heads, D=d,
+                   main_path=bf16 and (name, b, lq, lk, inner, heads) in TRAIN_K1_SHAPES,
+                   fwd_ms=fwd_ms, dkv_ms=dkv_ms, dq_ms=dq_ms, plain_fwd_ms=plain_fwd_ms,
+                   plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_fwd_ms,
+                   sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
+                   bounds={k_: dict(ms=ms, by=by) for k_, (ms, by) in bounds.items()},
+                   errors=errs)
+        rows.append(row)
+        log(f"[kernel] {name} {dtype_name} B={b} Lq={lq} Lk={lk} D={d} with gradient: "
+            f"fwd+lse {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f}), dk/dv {dkv_ms:.3f} ms "
+            f"(bound {bounds['dkv'][0]:.3f}), dq {dq_ms:.3f} ms (bound {bounds['dq'][0]:.3f}), "
+            f"pair bound {bounds['pair'][0]:.3f} ms; plain fwd {plain_fwd_ms:.3f} ms, plain bwd "
+            f"{plain_bwd_ms:.3f} ms, sdpa fwd {sdpa_fwd_ms:.3f} ms, fwd+bwd "
+            f"{sdpa_fwd_bwd_ms:.3f} ms; max|d| "
+            + ", ".join(f"{w_} {e['max_abs_err']:.2e}" for w_, e in errs.items())
+            + "; mean|d| " + ", ".join(f"{w_} {e['mean_abs_err']:.2e}" for w_, e in errs.items()
+                                       if "mean_abs_err" in e)
+            + "; sdpa's max|d| " + ", ".join(f"{w_} {e['sdpa_max_abs_err']:.2e}"
+                                             for w_, e in errs.items() if "sdpa_max_abs_err" in e))
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _flash_eligible(lq: int, lk: int) -> bool:
@@ -199,21 +382,13 @@ def synthetic_inputs(h: int, w: int, frames: int, seed: int, fps: float = 30.0):
     return ref, kps, wave
 
 
-def parity_phase(torch) -> dict:
-    """A reduced-depth fp32 pipeline on the card against the same run on the
-    CPU: same seeded weights, inputs and initial noise."""
-    import numpy as np
-    from vexpress_torch.io import init_pipeline_random_
+def reduced_models(torch):
+    """The reduced-depth fp32 configuration of the parity phases: level 0 has
+    80 channels / 2 heads = D 40, so a 32x32 latent (1024 tokens) takes K1."""
     from vexpress_torch.models import UNetConfig, VAEConfig, Wav2Vec2Config
-    from vexpress_torch.ops import launches
-    from vexpress_torch.pipelines import PipelineModels, VExpressPipeline
+    from vexpress_torch.pipelines import PipelineModels
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    H = W = 256
-    L, ctx, ovl, steps = 12, 8, 4, 2
-    models = PipelineModels(
-        # level 0: 80 channels / 2 heads = D 40 on a 32x32 latent (1024 tokens)
+    return PipelineModels(
         unet_config=UNetConfig(block_out_channels=(80, 160, 160, 160), layers_per_block=1,
                                attention_head_dim=2, cross_attention_dim=16, norm_num_groups=16,
                                motion_num_attention_heads=2, motion_max_len=8),
@@ -228,10 +403,33 @@ def parity_phase(torch) -> dict:
                                      embedding_dim=16, output_dim=16, max_seq_len=10),
         guider_kwargs=dict(conditioning_embedding_channels=80, block_out_channels=(4, 4, 8, 8)),
         dtype=torch.float32)
-    cpu = init_pipeline_random_(VExpressPipeline(models, device="cpu"), seed=11)
+
+
+def card_and_cpu_pipelines(torch, seed: int):
+    """The reduced models with the same seeded weights on the card and on the
+    CPU; TF32 off, so the card computes in fp32 too."""
+    from vexpress_torch.io import init_pipeline_random_
+    from vexpress_torch.pipelines import VExpressPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    models = reduced_models(torch)
+    cpu = init_pipeline_random_(VExpressPipeline(models, device="cpu"), seed=seed)
     card = VExpressPipeline(models, device="cuda")
     for name, mod in card.components().items():
         mod.load_state_dict(cpu.components()[name].state_dict())
+    return card, cpu
+
+
+def parity_phase(torch) -> dict:
+    """A reduced-depth fp32 pipeline on the card against the same run on the
+    CPU: same seeded weights, inputs and initial noise."""
+    import numpy as np
+    from vexpress_torch.ops import launches
+
+    H = W = 256
+    L, ctx, ovl, steps = 12, 8, 4, 2
+    card, cpu = card_and_cpu_pipelines(torch, seed=11)
     ref, kps, wave = synthetic_inputs(H, W, L, seed=5)
     noise = np.random.default_rng(6).standard_normal((L, H // 8, W // 8, 4)).astype(np.float32)
     kw = dict(reference_image=ref, kps_images=kps, audio_waveform=wave, width=W, height=H,
@@ -346,6 +544,383 @@ def _shape_key(row) -> tuple:
     return (b, lq, lk, inner // heads)
 
 
+# configs/stage_2.yaml's training values, written out (the card's machine has
+# no yaml parser); routed into a TrainConfig as cli/train.py routes the YAML
+STAGE_2 = {
+    "train_stage": "stage_2",
+    "data": {"train_bs": 1, "train_width": 512, "train_height": 512, "num_frames": TRAIN_FRAMES,
+             "lip_loss_weight": 1, "reference_drop_rate": 0, "kps_drop_rate": 0},
+    "module_training": {"denoising_unet": False, "reference_net": False, "v_kps_guider": False,
+                        "audio_projection": True, "motion_module": True},
+    "solver": {"gradient_accumulation_steps": 1, "reference_net_gradient_checkpointing": False,
+               "denoising_unet_gradient_checkpointing": True, "max_train_steps": 300000,
+               "max_grad_norm": 1.0, "learning_rate": 1.0e-6, "lr_warmup_steps": 1,
+               "lr_scheduler": "constant", "adam_beta1": 0.9, "adam_beta2": 0.999,
+               "adam_weight_decay": 1.0e-2, "adam_epsilon": 1.0e-8, "use_8bit_adam": True},
+    "uncond_ratio": 0.1, "noise_offset": 0.05, "snr_gamma": 5.0, "enable_zero_snr": True,
+}
+TRAIN_STEPS = 5
+
+
+def train_config(cfg: dict):
+    """TrainConfig from a training YAML's dict, as cli/train.py builds it."""
+    from vexpress_torch.train import TrainConfig
+    from vexpress_torch.train.config import effective_learning_rate, validate_config
+
+    validate_config(cfg)
+    data, mt, solver = cfg["data"], cfg["module_training"], cfg["solver"]
+    return TrainConfig(
+        train_stage=cfg["train_stage"], num_frames=data["num_frames"],
+        train_denoising_unet=mt["denoising_unet"], train_reference_net=mt["reference_net"],
+        train_v_kps_guider=mt["v_kps_guider"], train_audio_projection=mt["audio_projection"],
+        train_motion_module=mt["motion_module"],
+        learning_rate=effective_learning_rate(cfg, 1),
+        adam_beta1=float(solver["adam_beta1"]), adam_beta2=float(solver["adam_beta2"]),
+        adam_weight_decay=float(solver["adam_weight_decay"]),
+        adam_epsilon=float(solver["adam_epsilon"]), max_grad_norm=float(solver["max_grad_norm"]),
+        gradient_accumulation_steps=int(solver.get("gradient_accumulation_steps", 1)),
+        lr_scheduler=solver.get("lr_scheduler", "constant"),
+        lr_warmup_steps=int(solver.get("lr_warmup_steps", 1)),
+        max_train_steps=int(solver.get("max_train_steps", 40000)),
+        reduce_optimizer_memory=bool(solver.get("use_8bit_adam", False)),
+        prediction_type="v_prediction" if cfg.get("enable_zero_snr", True) else "epsilon",
+        snr_gamma=float(cfg.get("snr_gamma", 5.0)), uncond_ratio=float(cfg.get("uncond_ratio", 0.1)),
+        noise_offset=float(cfg.get("noise_offset", 0.05)),
+        lip_loss_weight=float(data.get("lip_loss_weight", 1.0)),
+        kps_drop_rate=float(data.get("kps_drop_rate", 0.0)),
+        reference_drop_rate=float(data.get("reference_drop_rate", 0.0)))
+
+
+def expected_bwd_launches(cfg, unet_cfg, h: int, w: int, frames: int, batch: int = 1) -> dict:
+    """K1 backward launches of one train step, by (kernel, B, Lq, Lk, D), from
+    the stage's trainability and the UNets' layout at latent (h, w).
+
+    Denoising UNet: a transformer block's attn1 runs both backward kernels
+    when its input carries a gradient; its attn1_5 runs the dq kernel then,
+    and the dk/dv kernel when the reference bank or attn1_5's own projections
+    train. The first block's input carries a gradient only if the UNet's first
+    layers or the kps guider train; every later block's does whenever anything
+    trains (at stage 2: the first block's attn2 and motion module). Reference
+    net: when it trains, every attn1 runs both kernels (its frozen up_blocks.3
+    still passes the gradient to its banks' inputs); otherwise it runs without
+    a gradient."""
+    import collections
+
+    ch, heads, lp = unet_cfg.block_out_channels, unet_cfg.attention_head_dim, unet_cfg.layers_per_block
+    levels = [0] * lp + [1] * lp + [2] * lp + [3] + [2] * (lp + 1) + [1] * (lp + 1) + [0] * (lp + 1)
+    x_grad = cfg.train_denoising_unet or cfg.train_v_kps_guider
+    later = x_grad or cfg.train_audio_projection or cfg.train_motion_module or cfg.train_reference_net
+    kv_grad = cfg.train_reference_net or cfg.train_denoising_unet
+    out = collections.Counter()
+    for i, lvl in enumerate(levels):
+        grad = x_grad if i == 0 else later
+        hw = (h >> lvl) * (w >> lvl)
+        d = ch[lvl] // heads
+        for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+            if _flash_eligible(hw, hw) and grad:
+                out[(kernel, batch * frames, hw, hw, d)] += 1
+            if _flash_eligible(hw, hw) and cfg.train_reference_net:
+                out[(kernel, batch, hw, hw, d)] += 1
+        if _flash_eligible(frames * hw, hw):
+            if grad:
+                out[("flash_bwd_dq", batch, frames * hw, hw, d)] += 1
+            if kv_grad:
+                out[("flash_bwd_dkv", batch, frames * hw, hw, d)] += 1
+    return dict(out)
+
+
+def synthetic_train_batch(torch, size: int, frames: int, audio_dim: int, seed: int, device):
+    """A seeded batch of the dataset's shapes (batch 1): target frames and
+    reference image in [-1, 1], kps frames in [0, 1], wav2vec2 window
+    embeddings (F, 10, audio_dim), lip masks at latent resolution."""
+    g = torch.Generator().manual_seed(seed)
+    lat = size // 8
+    batch = dict(target_images=torch.rand((1, frames, size, size, 3), generator=g) * 2 - 1,
+                 reference_image=torch.rand((1, size, size, 3), generator=g) * 2 - 1,
+                 kps_images=torch.rand((1, frames, size, size, 3), generator=g),
+                 audio_frame_embeddings=torch.randn((1, frames, 10, audio_dim), generator=g),
+                 lip_masks=torch.rand((1, frames, lat, lat), generator=g))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+TRAIN_PARITY_SIZE, TRAIN_PARITY_FRAMES = 256, 4
+
+
+def train_parity_phase(torch) -> dict:
+    """Stage 3 (every module trains, so dk/dv flow into the reference net
+    through attn1_5) on the reduced fp32 models, card against CPU with shared
+    weights, batch and draws: loss and gradients of one loss_fn, then 2
+    AdamW and 2 8-bit-Adam train steps. Bars: loss 1e-5 relative, each
+    trainable tensor's gradient within 1e-4 of its max, params within 1e-5."""
+    from vexpress_torch.ops import launches
+    from vexpress_torch.train import (TrainConfig, TrainState, build_train_step, make_optimizer,
+                                      sample_draws)
+
+    card, cpu = card_and_cpu_pipelines(torch, seed=21)
+    size, frames = TRAIN_PARITY_SIZE, TRAIN_PARITY_FRAMES
+    lat = size // 8
+    batches = {"card": synthetic_train_batch(torch, size, frames, 16, seed=4, device="cuda")}
+    batches["cpu"] = {k: v.cpu() for k, v in batches["card"].items()}
+    pipes = {"card": card, "cpu": cpu}
+    # lr 1e-5 and eps 1e-3 keep Adam's first steps smooth in the gradient, so
+    # the card-CPU difference of the params reflects that of the gradients
+    kw = dict(num_frames=frames, learning_rate=1e-5, adam_epsilon=1e-3, lip_loss_weight=2.0)
+    cfg = TrainConfig.stage("stage_3", **kw)
+    draws = sample_draws(torch.Generator().manual_seed(5), cfg, 1, frames, (lat, lat))
+    card_launches = {}
+
+    def on(name, fn):
+        launches.reset()
+        out = fn()
+        if name == "card":
+            torch.cuda.synchronize()
+            for key, n in launches.counts.items():
+                card_launches[key] = card_launches.get(key, 0) + n
+        return out
+
+    losses, grads = {}, {}
+    for name, pipe in pipes.items():
+        opt, mask = make_optimizer(pipe.components(), cfg)
+        _, loss_fn = build_train_step(pipe, cfg, opt)
+
+        def grad_run():
+            loss = loss_fn(pipe.components(), batches[name],
+                           {k: v.to(pipe.device) for k, v in draws.items()})
+            loss.backward()
+            return float(loss.detach())
+
+        losses[name] = on(name, grad_run)
+        grads[name] = {f"{m}.{n}": (p.grad.detach().cpu() if p.grad is not None else None)
+                       for m, mod in pipe.components().items()
+                       for n, p in mod.named_parameters() if p.requires_grad}
+        opt.zero_grad()
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    worst = (0.0, "")
+    for key, ref in grads["cpu"].items():
+        got = grads["card"][key]
+        if ref is None or got is None:
+            if (ref is None) != (got is None):
+                raise PhaseError(f"{key}: a gradient on one device only")
+            continue
+        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        worst = max(worst, (rel, key))
+
+    step_losses = {"card": [], "cpu": []}
+    for i, reduce in enumerate((False, True)):
+        step_cfg = TrainConfig.stage("stage_3", reduce_optimizer_memory=reduce, **kw)
+        for name, pipe in pipes.items():
+            opt, _ = make_optimizer(pipe.components(), step_cfg)
+            step_fn, _ = build_train_step(pipe, step_cfg, opt)
+            state, gen = TrainState(pipe.components(), opt), torch.Generator().manual_seed(7 + i)
+
+            def two_steps():
+                nonlocal state
+                for _ in range(2):
+                    state, metrics = step_fn(state, batches[name], gen)
+                    step_losses[name].append(float(metrics["loss"]))
+
+            on(name, two_steps)
+    param_err = max(float((pc.detach().cpu() - ph.detach()).abs().max())
+                    for mod in card.components() for pc, ph in
+                    zip(card.components()[mod].parameters(), cpu.components()[mod].parameters()))
+    log(f"[train_parity] fp32 stage 3, {size}x{size}, {frames} frames: loss card "
+        f"{losses['card']:.6f} cpu {losses['cpu']:.6f} (rel {loss_rel:.2e}); worst gradient "
+        f"max|d|/max|g| {worst[0]:.2e} ({worst[1]}); after 2 AdamW + 2 8-bit steps params "
+        f"max|d| {param_err:.2e}; step losses card {step_losses['card']} cpu "
+        f"{step_losses['cpu']}; K1 launches on the card {card_launches}")
+    if card_launches.get("flash_sdpa_reference") or card_launches.get("flash_sdpa_bwd_reference"):
+        raise PhaseError(f"a plain flash version ran on the card: {card_launches}")
+    reckoned = expected_bwd_launches(cfg, card.m.unet_config, lat, lat, frames)
+    for kernel in ("flash_bwd_dkv", "flash_bwd_dq"):
+        want = 5 * sum(n for key, n in reckoned.items() if key[0] == kernel)  # 1 + 4 backwards
+        if card_launches.get(kernel, 0) != want or not want:
+            raise PhaseError(f"{kernel} ran {card_launches.get(kernel, 0)} times on the card, "
+                             f"reckoned {want}: {card_launches}")
+    if loss_rel > 1e-5 or worst[0] > 1e-4 or param_err > 1e-5:
+        raise PhaseError(f"card and CPU training disagree: loss rel {loss_rel:.2e} (<=1e-5), "
+                         f"gradient {worst[0]:.2e} at {worst[1]} (<=1e-4), params "
+                         f"{param_err:.2e} (<=1e-5)")
+    return dict(loss_card=losses["card"], loss_cpu=losses["cpu"], loss_rel=loss_rel,
+                worst_grad_rel=worst[0], worst_grad_tensor=worst[1], param_max_abs_err=param_err,
+                step_losses=step_losses, launches=card_launches)
+
+
+def train_full_phase(torch) -> dict:
+    """Stage 2 at full SD1.5 width: configs/stage_2.yaml's values, bf16 (the
+    resolve_dtype(cfg, "bf16") route), seeded random weights, stage_zero_init,
+    the denoising UNet checkpointed per block, 20 frames at 512x512, batch 1,
+    TRAIN_STEPS steps of train_step. Times each step and splits it with CUDA
+    events (conditioning, UNet forward, backward, optimizer)."""
+    import dataclasses
+
+    from vexpress_torch.io import default_pipeline_models, init_pipeline_random_
+    from vexpress_torch.ops import launches
+    from vexpress_torch.pipelines import VExpressPipeline
+    from vexpress_torch.train import TrainState, build_train_step, make_optimizer, stage_zero_init
+    from vexpress_torch.train.config import resolve_dtype
+
+    cfg = train_config(STAGE_2)
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[resolve_dtype(STAGE_2, "bf16")]
+    models = default_pipeline_models(dtype)
+    checkpointing = STAGE_2["solver"]["denoising_unet_gradient_checkpointing"]
+    models = dataclasses.replace(models, unet_config=dataclasses.replace(
+        models.unet_config, gradient_checkpointing=checkpointing))
+    size, frames = STAGE_2["data"]["train_width"], cfg.num_frames
+    t0 = time.perf_counter()
+    pipe = init_pipeline_random_(VExpressPipeline(models, device="cuda"), seed=0)
+    comps = stage_zero_init(pipe.components(), cfg.train_stage)
+    optimizer, mask = make_optimizer(comps, cfg)
+    step_fn, _ = build_train_step(pipe, cfg, optimizer)
+    batch = synthetic_train_batch(torch, size, frames, 768, seed=3, device="cuda")
+    frozen = {f"{m}.{n}": p.detach().cpu() for m, mod in comps.items()
+              for n, p in mod.named_parameters() if not mask[m][n]}
+    zeroed = {f"denoising_unet.{n}": p for n, p in comps["denoising_unet"].named_parameters()
+              if ".attn2.to_out.0." in "." + n or ".temporal_transformer.proj_out." in "." + n}
+    n_train = sum(p.numel() for m, mod in comps.items() for n, p in mod.named_parameters()
+                  if mask[m][n])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    unet = comps["denoising_unet"]
+    hooks = [unet.register_forward_pre_hook(lambda *_: mark("unet_start")),
+             unet.register_forward_hook(lambda *_: mark("unet_end"))]
+    inner_step = optimizer.step
+
+    def timed_step():
+        mark("opt_start")
+        updated = inner_step()
+        mark("opt_end")
+        return updated
+
+    optimizer.step = timed_step
+    state, gen = TrainState(comps, optimizer), torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    step_s, losses, splits = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        state, metrics = step_fn(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        e = events
+        splits.append(dict(conditioning=e["start"].elapsed_time(e["unet_start"]) / 1e3,
+                           unet_forward=e["unet_start"].elapsed_time(e["unet_end"]) / 1e3,
+                           backward=e["unet_end"].elapsed_time(e["opt_start"]) / 1e3,
+                           optimizer=e["opt_start"].elapsed_time(e["opt_end"]) / 1e3))
+    counts = dict(launches.counts)
+    by_shape = {k: n for k, n in launches.shapes.items()}
+    for h in hooks:
+        h.remove()
+    optimizer.step = inner_step
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    changed_frozen = [f"{m}.{n}" for m, mod in comps.items() for n, p in mod.named_parameters()
+                      if f"{m}.{n}" in frozen and not torch.equal(p.detach().cpu(), frozen[f"{m}.{n}"])]
+    still_zero = [k for k, p in zeroed.items() if not bool(p.detach().any())]
+    lat = size // 8
+    expected = {k: n * TRAIN_STEPS for k, n in
+                expected_bwd_launches(cfg, models.unet_config, lat, lat, frames).items()}
+    measured = {k: n for k, n in by_shape.items() if k[0].startswith("flash_bwd")}
+    fwd_by_shape = {k[1:]: n for k, n in by_shape.items() if k[0] == "flash_fwd"}
+    later = step_s[1:]
+    split_mean = {k: sum(s[k] for s in splits[1:]) / len(later) for k in splits[0]}
+    log(f"[train_full] stage 2, {dtype}, {size}x{size}, {frames} frames, batch 1, "
+        f"checkpointing {checkpointing}, 8-bit Adam {cfg.reduce_optimizer_memory}, "
+        f"{n_train / 1e6:.1f} M trainable params: setup {setup_s:.1f} s, step 1 "
+        f"{step_s[0]:.3f} s, steps 2-{TRAIN_STEPS} {sum(later) / len(later):.3f} s/step "
+        f"({', '.join(f'{x:.3f}' for x in later)}), split of steps 2-{TRAIN_STEPS} "
+        f"{json.dumps(split_mean)}, step 1 split {json.dumps(splits[0])}, peak "
+        f"{peak_gib:.2f} GiB, losses {losses}, frozen params changed {len(changed_frozen)} of "
+        f"{len(frozen)}, zero-initialised still zero {len(still_zero)} of {len(zeroed)}; "
+        f"launches {counts}; forward by (B, Lq, Lk, D) {fwd_by_shape}; backward measured "
+        f"{sorted(measured.items())}, reckoned {sorted(expected.items())}")
+    if not all(math.isfinite(x) for x in losses):
+        raise PhaseError(f"non-finite loss: {losses}")
+    if changed_frozen:
+        raise PhaseError(f"frozen parameters changed: {changed_frozen[:5]}")
+    if still_zero or not zeroed:
+        raise PhaseError(f"zero-initialised projections did not move: {still_zero[:5]}")
+    if measured != expected:
+        raise PhaseError(f"K1 backward launches {measured} differ from the reckoned {expected}")
+    if counts.get("flash_sdpa_reference") or counts.get("flash_sdpa_bwd_reference"):
+        raise PhaseError(f"a plain flash version ran on the card: {counts}")
+    checked = {_shape_key(row) for row in K1_SHAPES + TRAIN_K1_SHAPES}
+    if not set(fwd_by_shape) <= checked:
+        raise PhaseError(f"K1 ran at shapes {sorted(fwd_by_shape)}; the kernel phase checks "
+                         f"{sorted(checked)}")
+    return dict(step_s=step_s, step1_s=step_s[0], steps_2_on_s=sum(later) / len(later),
+                split_s=split_mean, step1_split_s=splits[0], peak_alloc_gib=peak_gib,
+                losses=losses, setup_s=setup_s, trainable_params=n_train, launches=counts,
+                fwd_launches_by_shape=[[*k, n] for k, n in sorted(fwd_by_shape.items())],
+                bwd_launches_by_shape=[[*k, n] for k, n in sorted(measured.items())],
+                bwd_launches_expected=[[*k, n] for k, n in sorted(expected.items())])
+
+
+def kernels_line(results: dict) -> list:
+    """The `kernels` JSON entries: each kernel's launches on the main paths
+    (inference `full`, training `train_full`) and its times summed over the
+    main-path shapes at which those runs launched it, one call each."""
+    inf_by_shape = {tuple(key): n for *key, n in results["full"]["flash_launches_by_shape"]}
+    train_fwd = {tuple(key): n for *key, n in results["train_full"]["fwd_launches_by_shape"]}
+    train_bwd = {tuple(key): n for *key, n in results["train_full"]["bwd_launches_by_shape"]}
+    fwd_rows = results["kernel"]["rows"]
+    grad_rows = results["kernel"]["grad_rows"]
+    for r in fwd_rows:
+        r["launches"] = inf_by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
+    for r in grad_rows:
+        key = (r["B"], r["Lq"], r["Lk"], r["D"])
+        r["launches"] = dict(flash_fwd=train_fwd.get(key, 0),
+                             flash_bwd_dkv=train_bwd.get(("flash_bwd_dkv",) + key, 0),
+                             flash_bwd_dq=train_bwd.get(("flash_bwd_dq",) + key, 0))
+
+    def entry(name, source, replaces, parts, launches, **extra):
+        """parts: (ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err) per shape."""
+        by = {k: sum(p[3] for p in parts if p[4] == k) for k in ("operations", "bytes")}
+        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                    max_abs_err=max(p[5] for p in parts), ms=sum(p[0] for p in parts),
+                    plain_ms=sum(p[1] for p in parts), library_ms=sum(p[2] for p in parts),
+                    bound_ms=sum(p[3] for p in parts), bound_by=max(by, key=by.get),
+                    times_are="sums over the main-path shapes at which it ran, one call each",
+                    **extra)
+
+    main_grad = [r for r in grad_rows if r["main_path"]]
+    fwd_parts = ([(r["kernel_ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
+                   r["max_abs_err"]) for r in fwd_rows if r["main_path"] and r["launches"]]
+                 + [(r["fwd_ms"], r["plain_fwd_ms"], r["sdpa_fwd_ms"], r["bounds"]["fwd"]["ms"],
+                     r["bounds"]["fwd"]["by"], r["errors"]["out"]["max_abs_err"])
+                    for r in main_grad if r["launches"]["flash_fwd"]])
+    inf_n, train_n = results["full"]["flash_launches"], results["train_full"]["launches"].get(
+        "flash_fwd", 0)
+    kernels = [entry("flash_fwd", "vexpress_torch/csrc/flash_fwd.cu",
+                     "vexpress_tpu/ops/flash.py:42", fwd_parts, inf_n + train_n,
+                     launches_by_path=dict(full=inf_n, train_full=train_n),
+                     shapes=fwd_rows + [dict(r, kernel="flash_fwd") for r in main_grad])]
+    for name, key, grads, lib_line in (
+            ("flash_bwd_dkv", "dkv", ("dk", "dv"), ":941 _flash_attention_bwd_dkv"),
+            ("flash_bwd_dq", "dq", ("dq",), ":1287 _flash_attention_bwd_dq")):
+        parts = [(r[f"{key}_ms"], r["plain_bwd_ms"], r["sdpa_fwd_bwd_ms"], r["bounds"][key]["ms"],
+                  r["bounds"][key]["by"], max(r["errors"][g]["max_abs_err"] for g in grads))
+                 for r in main_grad if r["launches"][name]]
+        kernels.append(entry(
+            name, "vexpress_torch/csrc/flash_bwd.cu",
+            "vexpress_tpu/ops/flash.py:93, which reaches the library's "
+            "jax/experimental/pallas/ops/tpu/flash_attention.py" + lib_line, parts, results["train_full"]["launches"].get(name, 0),
+            plain_is="flash_sdpa_bwd_reference (dq, dk and dv at once)",
+            library_is="scaled_dot_product_attention forward + backward",
+            pair_bound_ms=sum(r["bounds"]["pair"]["ms"] for r in main_grad),
+            shapes=grad_rows))
+    return kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -371,7 +946,9 @@ def main() -> int:
     wall = {}
     for name, run in (("kernel", lambda: kernel_phase(torch)),
                       ("parity", lambda: parity_phase(torch)),
-                      ("full", lambda: full_phase(torch, FULL_STEPS))):
+                      ("train_parity", lambda: train_parity_phase(torch)),
+                      ("full", lambda: full_phase(torch, FULL_STEPS)),
+                      ("train_full", lambda: train_full_phase(torch))):
         t0 = time.perf_counter()
         results[name] = run()
         wall[name] = time.perf_counter() - t0
@@ -379,27 +956,7 @@ def main() -> int:
     print(json.dumps({"phases": {k: v for k, v in results.items() if k != "kernel"},
                       "phase_wall_s": wall, "card": card}))
 
-    # launches of each shape in the full-width run, as flash_sdpa counted them
-    by_shape = {tuple(key): n for *key, n in results["full"]["flash_launches_by_shape"]}
-    rows = results["kernel"]["rows"]
-    for r in rows:
-        r["launches"] = by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
-    main_rows = [r for r in rows if r["main_path"]]
-    bound_by = {k: sum(r["bound_ms"] for r in main_rows if r["bound_by"] == k)
-                for k in ("operations", "bytes")}
-    kernels = [dict(
-        name="flash_fwd", route="cuda", source="vexpress_torch/csrc/flash_fwd.cu",
-        replaces="vexpress_tpu/ops/flash.py:42",
-        launches=results["full"]["flash_launches"],
-        max_abs_err=max(r["max_abs_err"] for r in main_rows),
-        ms=sum(r["kernel_ms"] for r in main_rows),
-        plain_ms=sum(r["plain_ms"] for r in main_rows),
-        bound_ms=sum(r["bound_ms"] for r in main_rows),
-        bound_by=max(bound_by, key=bound_by.get),
-        library_ms=sum(r["library_ms"] for r in main_rows),
-        times_are="sums over the main-path shapes, one call each",
-        shapes=rows,
-    )]
+    kernels = kernels_line(results)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,16 +1,24 @@
-"""The PyTorch port stands alone: importing vexpress_torch (every submodule)
-or chip_smoke.py loads neither JAX nor vexpress_tpu, entry points refuse to
-fall back to the CPU silently, and chip_smoke.py prints no result without a
-CUDA device or without the package beside it."""
+"""The PyTorch port stands alone: importing vexpress_torch (every submodule,
+the training modules included) or chip_smoke.py loads neither JAX nor
+vexpress_tpu (nor flax or optax), no source file of the port names them in an
+import, entry points refuse to fall back to the CPU silently, and
+chip_smoke.py prints no result without a CUDA device or without the package
+beside it."""
 
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 NO_CUDA = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+PORT_SOURCES = sorted(str(f.relative_to(REPO)) for f in (REPO / "vexpress_torch").rglob("*.py"))
+PORT_SOURCES.append("chip_smoke.py")
+FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|vexpress_tpu|flax|optax)\b", re.M)
 
 
 def _run(code: str, cwd=REPO, env=NO_CUDA):
@@ -26,9 +34,13 @@ names = [m.name for m in pkgutil.walk_packages(vexpress_torch.__path__, "vexpres
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "vexpress_tpu", "flax")))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "optax") or m.startswith(("jax.", "optax.", "vexpress_tpu", "flax")))
 assert not bad, bad
 assert len(names) >= 20, names
+train = {"vexpress_torch.train", "vexpress_torch.train.config", "vexpress_torch.train.adam8bit",
+         "vexpress_torch.train.train_step"}
+assert train <= set(names), sorted(train - set(names))
 print("OK", len(names))
 """
     proc = _run(code)
@@ -66,3 +78,11 @@ def test_chip_smoke_alone_prints_no_result(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
+def test_port_source_imports_no_jax(path):
+    """No source of the port (nor chip_smoke.py) imports JAX, flax, optax or
+    the JAX package, even lazily inside a function."""
+    found = FORBIDDEN_IMPORT.findall((REPO / path).read_text())
+    assert not found, (path, found)

@@ -1,7 +1,7 @@
 """vexpress_torch: the PyTorch / CUDA (NVIDIA H100) port of vexpress_tpu.
 
 The sub-packages mirror vexpress_tpu's (`ops`, `models`, `diffusion`,
-`pipelines`, `io`) with the same class and function names. Nothing here
+`pipelines`, `io`, `train`) with the same class and function names. Nothing here
 imports JAX or vexpress_tpu. Entry points run on the CUDA device unless the
 caller passes `device="cpu"`.
 """

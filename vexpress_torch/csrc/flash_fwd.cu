@@ -4,7 +4,9 @@
 // library's Pallas TPU flash_attention forward. Same function: non-causal
 // softmax(q k^T * scale) v per (batch, head), online softmax with fp32 running
 // max, sum and accumulator, no Lq x Lk logits in device memory, output in the
-// input dtype.
+// input dtype. Under a gradient the same launch also writes each query row's
+// log-sum-exp (fp32), which the backward kernels (flash_bwd.cu) read in place
+// of the TPU kernel's separate l and m statistics.
 //
 // Bound on an H100 SXM: 4*B*H*Lq*Lk*D operations over 2*(2*Lq + 2*Lk)*B*H*D
 // bytes (bf16, each tensor read or written once) is about Lk operations per
@@ -34,12 +36,13 @@
 // The launch goes on the caller's stream, allocates nothing and does not
 // synchronise; the function returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace vx;
 
 constexpr int BQ = 64;  // query rows per block
 
@@ -47,35 +50,12 @@ struct Strides {
   long long q_b, q_l, k_b, k_l, v_b, v_l, o_b, o_l;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // ---------------------------------------------------------------- bf16, mma
 template <int D>
 __global__ void __launch_bounds__(128)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H, int Lk,
-              Strides st, float scale_log2) {
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+              float* __restrict__ lse, int H, int Lk, Strides st, float scale_log2) {
   constexpr int BK = 64;                 // keys per shared-memory tile
   constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to the mma depth
   constexpr int KD = DP / 16;            // k-steps of S = Q K^T
@@ -212,6 +192,11 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if (lse != nullptr && t == 0) {  // natural-log LSE of the scaled logits
+    float* lp = lse + (long long)bh * gridDim.x * BQ;
+    lp[r0] = (m0 + log2f(l0)) * LN2;
+    lp[r0 + 8] = (m1 + log2f(l1)) * LN2;
+  }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   __nv_bfloat16* o0 = ob + r0 * st.o_l;
   __nv_bfloat16* o1 = ob + (r0 + 8) * st.o_l;
@@ -229,7 +214,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, int H, int Lk, Strides st, float scale_log2) {
+               T* __restrict__ o, float* __restrict__ lse, int H, int Lk, Strides st,
+               float scale_log2) {
   constexpr int TK = 32;     // keys per shared-memory tile
   constexpr int DQ = D / 4;  // columns owned by each of a row's 4 threads
   __shared__ float ks[TK][D];
@@ -287,6 +273,7 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     }
   }
 
+  if (lse != nullptr && part == 0) lse[(long long)bh * gridDim.x * BQ + qi] = (m + log2f(l)) * LN2;
   T* op = o + b * st.o_b + qi * st.o_l + h * D + part * DQ;
   const float inv = 1.f / l;
 #pragma unroll
@@ -294,18 +281,18 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 template <int D>
-void launch(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H,
-            int Lq, int Lk, const Strides& st, float scale_log2, cudaStream_t s) {
+void launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse, int B,
+            int H, int Lq, int Lk, const Strides& st, float scale_log2, cudaStream_t s) {
   const dim3 grid(Lq / BQ, B * H);
   if (dtype == 1) {
     flash_fwd_mma<D><<<grid, 128, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, Lk, st,
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lk, st,
         scale_log2);
   } else {
     flash_fwd_simt<float, D><<<grid, 256, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), H, Lk, st, scale_log2);
+        static_cast<float*>(o), lse, H, Lk, st, scale_log2);
   }
 }
 
@@ -313,20 +300,23 @@ void launch(int dtype, const void* q, const void* k, const void* v, void* o, int
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements.
-int vx_flash_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B, int H,
-                 int Lq, int Lk, int D, long long q_sb, long long q_sl, long long k_sb,
-                 long long k_sl, long long v_sb, long long v_sl, long long o_sb, long long o_sl,
-                 float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lse` is null or
+// a contiguous (B, H, Lq) float32 buffer that receives each row's natural-log
+// log-sum-exp of the scaled logits (what the backward kernels read).
+int vx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
+                 int B, int H, int Lq, int Lk, int D, long long q_sb, long long q_sl,
+                 long long k_sb, long long k_sl, long long v_sb, long long v_sl, long long o_sb,
+                 long long o_sl, float scale, void* stream) {
   if ((dtype != 0 && dtype != 1) || Lq % BQ != 0 || Lk % 64 != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides st{q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl};
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * LOG2E;
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 40: launch<40>(dtype, q, k, v, o, B, H, Lq, Lk, st, scale_log2, s); break;
-    case 80: launch<80>(dtype, q, k, v, o, B, H, Lq, Lk, st, scale_log2, s); break;
-    case 160: launch<160>(dtype, q, k, v, o, B, H, Lq, Lk, st, scale_log2, s); break;
+    case 40: launch<40>(dtype, q, k, v, o, l, B, H, Lq, Lk, st, scale_log2, s); break;
+    case 80: launch<80>(dtype, q, k, v, o, l, B, H, Lq, Lk, st, scale_log2, s); break;
+    case 160: launch<160>(dtype, q, k, v, o, l, B, H, Lq, Lk, st, scale_log2, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -120,3 +120,29 @@ class DDIMScheduler:
             pred_x0 = pred_x0.clamp(-1.0, 1.0)
         prev = torch.sqrt(alpha_prod_prev) * pred_x0 + torch.sqrt(1.0 - alpha_prod_prev) * pred_eps
         return prev.to(sample.dtype)
+
+    # --------------------------------------------------------------- training
+
+    def _alpha_prod(self, timesteps: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """alphas_cumprod[timesteps] in fp32, with trailing axes to broadcast
+        against `like`."""
+        table = torch.as_tensor(self.alphas_cumprod, device=timesteps.device)
+        a = table[timesteps.long()]
+        return a.reshape(a.shape + (1,) * (like.dim() - a.dim()))
+
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        a = self._alpha_prod(timesteps, original)
+        return (torch.sqrt(a) * original.float() + torch.sqrt(1 - a) * noise.float()).to(
+            original.dtype)
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        a = self._alpha_prod(timesteps, sample)
+        return (torch.sqrt(a) * noise.float() - torch.sqrt(1 - a) * sample.float()).to(
+            sample.dtype)
+
+    def snr(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """Signal-to-noise ratio per timestep (the Min-SNR loss weighting)."""
+        a = self._alpha_prod(timesteps, timesteps)
+        return a / torch.clamp(1.0 - a, min=1e-20)

@@ -16,6 +16,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.layers import TimestepEmbedding, get_timestep_embedding
@@ -45,6 +46,10 @@ class UNetConfig:
     motion_num_attention_heads: int = 8
     motion_num_transformer_block: int = 1
     motion_max_len: int = 32
+    # run each down/mid/up block of the denoising UNet under
+    # torch.utils.checkpoint in training mode: activations are recomputed at
+    # block boundaries in the backward pass (the JAX package's nn.remat)
+    gradient_checkpointing: bool = False
 
     def __post_init__(self):
         if self.fusion_blocks not in ("full", "midup"):
@@ -176,16 +181,23 @@ class DenoisingUNet3D(UNetBody):
 
         lp = cfg.layers_per_block
         midup = cfg.fusion_blocks == "midup"
+
+        def run(blk, *args):
+            if self.training and cfg.gradient_checkpointing:
+                return torch.utils.checkpoint.checkpoint(blk, *args, use_reentrant=False)
+            return blk(*args)
+
         cursor = 0
         skips = [x]
         for i, blk in enumerate(self.down_blocks):
             n_refs = 0 if (i == 3 or midup) else lp
             block_refs = None if (midup and i != 3) else refs[cursor : cursor + n_refs]
             cursor += n_refs
-            x, states = blk(x, temb, ctx, block_refs, scales, f, zero_uncond_kv)
+            x, states = run(blk, x, temb, ctx, block_refs, scales, f, zero_uncond_kv)
             skips.extend(states)
 
-        x = self.mid_block(x, temb, ctx, refs[cursor : cursor + 1], scales, f, zero_uncond_kv)
+        x = run(self.mid_block, x, temb, ctx, refs[cursor : cursor + 1], scales, f,
+                zero_uncond_kv)
         cursor += 1
 
         for i, blk in enumerate(self.up_blocks):
@@ -193,7 +205,7 @@ class DenoisingUNet3D(UNetBody):
             block_refs = refs[cursor : cursor + n_refs]
             cursor += n_refs
             use, skips = skips[-(lp + 1):], skips[:-(lp + 1)]
-            x = blk(x, list(use), temb, ctx, block_refs, scales, f, zero_uncond_kv)
+            x = run(blk, x, list(use), temb, ctx, block_refs, scales, f, zero_uncond_kv)
 
         x = self.head(x)
         return x.permute(0, 2, 3, 1).reshape(b, f, h, w, cfg.out_channels)

@@ -155,6 +155,7 @@ class UpBlock(_BlockCommon):
 
     def forward(self, x, skips: List[torch.Tensor], temb, ctx, refs, scales, frames: int,
                 zero_uncond_kv: bool = False):
+        skips = list(skips)  # popped below; a checkpoint recompute passes the same list again
         for i, resnet in enumerate(self.resnets):
             x = torch.cat([x, skips.pop()], dim=1)
             x = resnet(x, temb)

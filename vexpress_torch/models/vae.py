@@ -8,7 +8,7 @@ single-head softmax attention. Latent scaling is the pipeline's job."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -159,12 +159,29 @@ class AutoencoderKL(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.quant_conv.weight.dtype
 
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, H, W, 3) in [-1, 1] -> posterior (mean, logvar), each
+        (N, H/8, W/8, 4); logvar clipped to [-30, 20]."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        moments = self.quant_conv(self.encoder(x)).permute(0, 2, 3, 1)
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
+
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) in [-1, 1] -> posterior mean (N, H/8, W/8, 4)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         moments = self.quant_conv(self.encoder(x))
         mean = moments[:, : self.config.latent_channels]
         return mean.permute(0, 2, 3, 1)
+
+    def encode_sample(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """A sample of the posterior: mean + exp(logvar / 2) * noise, with
+        `noise` (N, H/8, W/8, 4) given or drawn from `generator`."""
+        mean, logvar = self.encode_moments(x)
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+        return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(N, h, w, 4) -> (N, H, W, 3) in [-1, 1]."""

@@ -1,14 +1,18 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain version.
+"""Flash attention: the hand-written Hopper kernels and their plain versions.
 
 Counterpart of vexpress_tpu/ops/flash.py, whose `flash_sdpa` calls the JAX
-library's Pallas TPU flash-attention kernel. Here the kernel is
-`csrc/flash_fwd.cu` (CUDA C++ for sm_90a), built by nvcc into a plain-C shared
-library under `vexpress_torch/_build/` at first use and called through ctypes.
+library's Pallas TPU flash-attention kernel (and, under a gradient, its two
+backward kernels). Here the kernels are `csrc/flash_fwd.cu` (forward, with an
+optional log-sum-exp output) and `csrc/flash_bwd.cu` (dk/dv and dq), CUDA C++
+for sm_90a, built by nvcc into one plain-C shared library under
+`vexpress_torch/_build/` at first use and called through ctypes.
 
-`flash_sdpa` sends CUDA tensors to the kernel and CPU tensors to
-`flash_sdpa_reference`, the same function in plain torch. There is no fallback
-between the two: a CUDA tensor that the kernel cannot take, a failed build or
-a failed launch raises.
+`flash_sdpa` sends CUDA tensors to the kernels and CPU tensors to
+`flash_sdpa_reference`, the same function in plain torch, which autograd
+differentiates. On the card, a call whose inputs need a gradient goes through
+`FlashAttention`, whose backward launches the backward kernels. There is no
+fallback between kernel and plain version: a CUDA tensor that the kernels
+cannot take, a failed build or a failed launch raises.
 """
 
 from __future__ import annotations
@@ -21,18 +25,19 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .launches import counts, shapes
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "flash_fwd.cu"
+_CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_DIMS = (40, 80, 160)
-_ROWS = 64  # query rows per block; Lq and Lk must be multiples of it
+_ROWS = 64  # rows per block; Lq and Lk must be multiples of it
+_LOGIT_BUDGET = 1 << 26  # fp32 (B, H, chunk, Lk) elements per chunk of the plain backward
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -50,27 +55,42 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME/bin, /usr/local/cuda/bin): "
-                       "the flash kernel is built from csrc/flash_fwd.cu at first use")
+                       "the flash kernels are built from csrc/*.cu at first use")
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/flash_fwd.cu for sm_90a into _build/ (once per source
-    content) and return the library's path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    out = _BUILD / f"libvx_flash_{tag}.so"
+    """Compile every csrc/*.cu for sm_90a (one nvcc per source, all at once)
+    and link them into one library under _build/; once per content of csrc/.
+    Returns the library's path."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for f in sorted(_CSRC.iterdir()):
+        digest.update(f.name.encode() + b"\0" + f.read_bytes())
+    out = _BUILD / f"libvx_flash_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        objs = [pathlib.Path(tmp) / (src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *arch, "-Xcompiler", "-fPIC", "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, obj in zip(sources, objs)]
+        errors = []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc {src.name} failed ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        lib = pathlib.Path(tmp) / "lib.so"
+        proc = subprocess.run([nvcc, *arch, "-shared", "-o", str(lib), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 
@@ -79,21 +99,30 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.vx_flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                         ll, ll, ll, ll, ll, ll, ll, ll, ctypes.c_float, p]
+            p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+            lib.vx_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                         ll, ll, ll, ll, ll, ll, ll, ll, f, p]
             lib.vx_flash_fwd.restype = i
+            lib.vx_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
+            lib.vx_flash_bwd_dkv.restype = i
+            lib.vx_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
+            lib.vx_flash_bwd_dq.restype = i
             lib.vx_error_string.argtypes = [i]
             lib.vx_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 
 
+# ------------------------------------------------------------ plain versions
+
+
 def flash_sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
-                         scale: Optional[float] = None, q_chunk: Optional[int] = None
-                         ) -> torch.Tensor:
-    """Plain torch version of the kernel: fp32 logits and softmax, queries in
-    chunks that bound the (B, H, chunk, Lk) logits to ~2^28 elements."""
+                         scale: Optional[float] = None, q_chunk: Optional[int] = None,
+                         return_lse: bool = False):
+    """Plain torch version of the forward kernel: fp32 logits and softmax,
+    queries in chunks that bound the (B, H, chunk, Lk) logits to ~2^28
+    elements. With `return_lse`, also the (B, H, Lq) fp32 log-sum-exp of the
+    scaled logits, as the kernel writes it under a gradient."""
     counts["flash_sdpa_reference"] += 1
     b, lq, inner = q.shape
     lk = k.shape[1]
@@ -105,12 +134,55 @@ def flash_sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head
     kf = k.reshape(b, lk, heads, d).float()
     vf = v.reshape(b, lk, heads, d).float()
     qh = q.reshape(b, lq, heads, d)
-    outs = []
+    outs, lses = [], []
     for s in range(0, lq, q_chunk):
         logits = torch.einsum("bqhd,bkhd->bhqk", qh[:, s : s + q_chunk].float(), kf) * scale
         w = torch.softmax(logits, dim=-1)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", w, vf))
-    return torch.cat(outs, dim=1).reshape(b, lq, inner).to(q.dtype)
+        if return_lse:
+            lses.append(torch.logsumexp(logits, dim=-1))
+    out = torch.cat(outs, dim=1).reshape(b, lq, inner).to(q.dtype)
+    if return_lse:
+        return out, torch.cat(lses, dim=2)
+    return out
+
+
+def flash_sdpa_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, heads: int,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch version of the backward kernels: (dq, dk, dv) of
+    `flash_sdpa` from the forward's output `o` and log-sum-exp `lse`, in fp32
+    chunk by chunk over queries (P = exp(scale q k^T - lse),
+    dS = P (do v^T - rowsum(do o)), dq = scale dS k, dk = scale dS^T q,
+    dv = P^T do), so no full (Lq, Lk) logits are kept."""
+    counts["flash_sdpa_bwd_reference"] += 1
+    b, lq, inner = q.shape
+    lk = k.shape[1]
+    d = inner // heads
+    if scale is None:
+        scale = d**-0.5
+    q_chunk = max(1, _LOGIT_BUDGET // max(b * heads * lk, 1))
+    kf = k.reshape(b, lk, heads, d).float()
+    vf = v.reshape(b, lk, heads, d).float()
+    qh, oh, doh = (x.reshape(b, lq, heads, d) for x in (q, o, do))
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    dqs = []
+    for s in range(0, lq, q_chunk):
+        qc, doc = qh[:, s : s + q_chunk].float(), doh[:, s : s + q_chunk].float()
+        di = (doc * oh[:, s : s + q_chunk].float()).sum(-1).transpose(1, 2)  # (b, h, c)
+        p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qc, kf) * scale
+                      - lse[:, :, s : s + q_chunk, None].float())
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, doc)
+        ds = p * (torch.einsum("bqhd,bkhd->bhqk", doc, vf) - di[..., None])
+        dqs.append(torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale)
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qc) * scale
+    dq = torch.cat(dqs, dim=1).reshape(b, lq, inner).to(q.dtype)
+    return dq, dk.reshape(b, lk, inner).to(k.dtype), dv.reshape(b, lk, inner).to(v.dtype)
+
+
+# ------------------------------------------------------------------ kernels
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> None:
@@ -127,46 +199,174 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> Non
         raise ValueError(f"flash_sdpa devices disagree: {q.device}, {k.device}, {v.device}")
 
 
+def _check_kernel_inputs(heads: int, **tensors: torch.Tensor) -> None:
+    """What the CUDA kernels take: bf16 or fp32, D in KERNEL_HEAD_DIMS, Lq and
+    Lk multiples of 64, contiguous 16-byte aligned tensors."""
+    q = tensors["q"]
+    b, lq, inner = q.shape
+    lk, d = tensors["k"].shape[1], inner // heads
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernels: unsupported device {q.device}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"flash kernels take {KERNEL_DTYPES}, got {q.dtype}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernels take head dims {KERNEL_HEAD_DIMS}, got {d}")
+    if lq % _ROWS or lk % _ROWS:
+        raise ValueError(f"flash kernels need Lq, Lk multiples of {_ROWS}, got {lq}, {lk}")
+    if b * heads > 65535:
+        raise ValueError(f"flash kernel grid: B*H={b * heads} exceeds 65535")
+    for name, t in tensors.items():
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash kernels: {name} is {t.dtype} on {t.device}, "
+                             f"q is {q.dtype} on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash kernels need contiguous 16-byte aligned tensors ({name})")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"flash {what} launch failed: {_library().vx_error_string(rc).decode()}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    return 1 if t.dtype == torch.bfloat16 else 0
+
+
+def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool):
+    """csrc/flash_fwd.cu on the current stream: (out, lse or None)."""
+    _check_kernel_inputs(heads, q=q, k=k, v=v)
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    lib = _library()
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, heads, lq), dtype=torch.float32, device=q.device) if with_lse
+           else None)
+    with torch.cuda.device(q.device):
+        rc = lib.vx_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), _dtype_code(q), b, heads, lq, lk, d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1), float(scale), _stream(q))
+    _raise_on(rc, "forward")
+    counts["flash_fwd"] += 1
+    shapes[("flash_fwd", b, lq, lk, d)] += 1
+    return out, lse
+
+
+def bwd_di(do: torch.Tensor, o: torch.Tensor, heads: int) -> torch.Tensor:
+    """di = rowsum(do * o) per (batch, head, query), fp32 (B, H, Lq): the
+    plain reduction before the backward kernels (the TPU path leaves it to
+    XLA)."""
+    b, lq, inner = o.shape
+    return ((do.float() * o.float()).reshape(b, lq, heads, inner // heads).sum(-1)
+            .transpose(1, 2).contiguous())
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+               lse: torch.Tensor, di: torch.Tensor, heads: int, scale: float,
+               need_dq: bool = True, need_dkv: bool = True):
+    """csrc/flash_bwd.cu on the current stream: the dk/dv kernel when
+    `need_dkv`, the dq kernel when `need_dq`; returns (dq, dk, dv) with None
+    for a gradient not asked for. CUDA tensors only."""
+    _check_kernel_inputs(heads, q=q, k=k, v=v, do=do)
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    for name, t in (("lse", lse), ("di", di)):
+        if (t.shape != (b, heads, lq) or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"flash backward needs a contiguous fp32 {name} of shape "
+                             f"{(b, heads, lq)} on {q.device}, got {tuple(t.shape)} {t.dtype}")
+    lib = _library()
+    dq = torch.empty_like(q) if need_dq else None
+    dk = torch.empty_like(k) if need_dkv else None
+    dv = torch.empty_like(v) if need_dkv else None
+    st = [q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+          do.stride(0), do.stride(1)]
+    for t in (dq, dk, dv):
+        st += [t.stride(0), t.stride(1)] if t is not None else [0, 0]
+    strides = (ctypes.c_longlong * len(st))(*st)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = _stream(q)
+        if need_dkv:
+            rc = lib.vx_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), _dtype_code(q), b,
+                                      heads, lq, lk, d, strides, float(scale), stream)
+            _raise_on(rc, "backward dk/dv")
+            counts["flash_bwd_dkv"] += 1
+            shapes[("flash_bwd_dkv", b, lq, lk, d)] += 1
+        if need_dq:
+            rc = lib.vx_flash_bwd_dq(*args, dq.data_ptr(), _dtype_code(q), b, heads, lq, lk, d,
+                                     strides, float(scale), stream)
+            _raise_on(rc, "backward dq")
+            counts["flash_bwd_dq"] += 1
+            shapes[("flash_bwd_dq", b, lq, lk, d)] += 1
+    return dq, dk, dv
+
+
+def flash_sdpa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                   lse: torch.Tensor, do: torch.Tensor, heads: int, scale: float,
+                   need_dq: bool = True, need_dkv: bool = True):
+    """(dq, dk, dv) of the attention whose forward gave `o` and `lse`; a
+    gradient not asked for is None.
+
+    CUDA tensors: `bwd_di`, then `launch_bwd` (the backward kernels, which
+    check what they read). CPU tensors run `flash_sdpa_bwd_reference`."""
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_sdpa_bwd_reference(q, k, v, o, lse, do, heads, scale)
+        return (dq if need_dq else None, dk if need_dkv else None, dv if need_dkv else None)
+    return launch_bwd(q, k, v, do, lse, bwd_di(do, o, heads), heads, scale, need_dq, need_dkv)
+
+
+def flash_sdpa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the forward kernel with its log-sum-exp output on CUDA
+    tensors, `flash_sdpa_reference(..., return_lse=True)` on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_sdpa_reference(q, k, v, heads, scale, return_lse=True)
+    return _launch_fwd(q, k, v, heads, scale, with_lse=True)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with a gradient: the forward saves (q, k, v, out, lse); the backward
+    runs `flash_sdpa_bwd`, skipping the dk/dv kernel when neither k nor v
+    needs a gradient and the dq kernel when q does not."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads: int, scale: float):
+        out, lse = flash_sdpa_fwd(q, k, v, heads, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        dq, dk, dv = flash_sdpa_bwd(q, k, v, out, lse, do.contiguous(), ctx.heads, ctx.scale,
+                                    need_dq=need_q, need_dkv=need_k or need_v)
+        return dq, dk if need_k else None, dv if need_v else None, None, None
+
+
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
                scale: Optional[float] = None) -> torch.Tensor:
     """Non-causal multi-head attention over packed (B, L, H*D) tensors.
 
     CUDA tensors launch csrc/flash_fwd.cu on the current stream (bf16 or fp32,
-    D in {40, 80, 160}, Lq and Lk multiples of 64, contiguous); anything else
-    on the card raises. CPU tensors run `flash_sdpa_reference`."""
+    D in {40, 80, 160}, Lq and Lk multiples of 64, contiguous); when grad mode
+    is on and an input requires a gradient, through `FlashAttention`, whose
+    backward launches csrc/flash_bwd.cu. Anything else on the card raises. CPU
+    tensors run `flash_sdpa_reference`."""
     _check(q, k, v, heads)
-    b, lq, inner = q.shape
-    lk = k.shape[1]
-    d = inner // heads
+    d = q.shape[2] // heads
     if scale is None:
         scale = d**-0.5
     if q.device.type == "cpu":
         return flash_sdpa_reference(q, k, v, heads, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_sdpa: unsupported device {q.device}")
-    if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"flash kernel takes {KERNEL_DTYPES}, got {q.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dims {KERNEL_HEAD_DIMS}, got {d}")
-    if lq % _ROWS or lk % _ROWS:
-        raise ValueError(f"flash kernel needs Lq, Lk multiples of {_ROWS}, got {lq}, {lk}")
-    if b * heads > 65535:
-        raise ValueError(f"flash kernel grid: B*H={b * heads} exceeds 65535")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash kernel needs contiguous 16-byte aligned tensors ({name})")
-    lib = _library()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.vx_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            1 if q.dtype == torch.bfloat16 else 0, b, heads, lq, lk, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash kernel launch failed: {lib.vx_error_string(rc).decode()}")
-    counts["flash_fwd"] += 1
-    shapes[("flash_fwd", b, lq, lk, d)] += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, heads, scale)
+    return _launch_fwd(q, k, v, heads, scale, with_lse=False)[0]
