@@ -7,13 +7,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   card          the card's name and power limit (nvidia-smi)
   build         nvcc builds every kernel from the sources in the checkout
   kernel        each kernel at the main paths' shapes against its plain
-                version: K1's forward at the inference shapes; at the training
-                shapes K1 with its gradient (forward with log-sum-exp, dk/dv
-                and dq kernels) through FlashAttention; times of each kernel,
-                its plain version, one PyTorch library call (a yardstick only)
-                and the card's bound
+                version: K1's forward and K2 (VEXPRESS_FLASH_LITE's bf16-exp
+                forward, also against exact fp32 attention) at the inference
+                shapes; at the training shapes K1 with its gradient (forward
+                with log-sum-exp, dk/dv and dq kernels) through
+                FlashAttention; times of each kernel, its plain version, one
+                PyTorch library call (a yardstick only), K1 beside K2 on the
+                same inputs, and the card's bound
   parity        a reduced-depth fp32 pipeline run on the card against the same
-                run on the CPU (decoded-video PSNR)
+                run on the CPU (decoded-video PSNR); then the CLI's
+                configuration on the same models: DPM-Solver++, save_memory,
+                K2, YUV420 planes
   train_parity  the same reduced-depth models in fp32 at stage 3: loss and
                 gradients, then 2 AdamW and 2 8-bit-Adam train steps, on the
                 card against the CPU
@@ -25,6 +29,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                 weights; checks losses, frozen and moved parameters, and the
                 kernel launches by shape against those reckoned from the
                 stage's trainability
+  cli_full      the inference CLI's build_pipeline with its defaults (SD1.5
+                geometry, bf16, absent checkpoints so seeded random weights)
+                and generate with --sampler dpmpp_2m --num_inference_steps 12
+                --save_gpu_memory, K2 on, median filter and YUV420 output, on
+                44 synthetic 512x512 frames; then a 1-step call without
+                save_memory brings the released modules back
 
 It prints a `kernels` JSON line and, as its last line, the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -34,6 +44,7 @@ Nothing here imports JAX or vexpress_tpu.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -179,7 +190,8 @@ LSE_BAR = 2e-5  # fp32 log-sum-exp against the plain version (measured <= 2e-6)
 
 
 def kernel_phase(torch) -> dict:
-    """K1 against flash_sdpa_reference at every main-path shape."""
+    """K1 against flash_sdpa_reference, and K2 (`k2_row`) on the same
+    inputs, at every main-path shape and the checks off it."""
     import torch.nn.functional as F
     from vexpress_torch.ops import flash, launches
 
@@ -187,7 +199,7 @@ def kernel_phase(torch) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = []
+    rows, lite_rows = [], []
     cases = [(n, b, lq, lk, i, h, "bfloat16") for n, b, lq, lk, i, h in K1_SHAPES] + K1_EXTRA
     for name, b, lq, lk, inner, heads, dtype_name in cases:
         dtype = getattr(torch, dtype_name)
@@ -200,12 +212,12 @@ def kernel_phase(torch) -> dict:
         torch.cuda.synchronize()
         if launches.counts["flash_fwd"] != 1 or launches.counts["flash_sdpa_reference"]:
             raise PhaseError(f"{name}: flash_sdpa did not launch the kernel: {dict(launches.counts)}")
-        ref = flash.flash_sdpa_reference(q.float(), k.float(), v.float(), heads)
-        err = (out.float() - ref).abs()
+        exact = flash.flash_sdpa_reference(q.float(), k.float(), v.float(), heads)
+        err = (out.float() - exact).abs()
         max_err, mean_err = float(err.max()), float(err.mean())
-        ref_std = float(ref.std())
+        ref_std = float(exact.std())
         finite = bool(torch.isfinite(out).all())
-        del ref, err
+        del err
         ok, tol = within_k1_bar(dtype == torch.bfloat16, max_err, mean_err, ref_std)
         ms = cuda_time_ms(torch, lambda: flash.flash_sdpa(q, k, v, heads))
         plain_ms = cuda_time_ms(torch, lambda: flash.flash_sdpa_reference(q, k, v, heads),
@@ -213,14 +225,15 @@ def kernel_phase(torch) -> dict:
         qh, kh, vh = (t.reshape(t.shape[0], t.shape[1], heads, d).transpose(1, 2).contiguous()
                       for t in (q, k, v))
         library_ms = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        del qh, kh, vh, q, k, v, out
+        del qh, kh, vh, out
         bound_ms, bound_by = k1_bound_ms(b, lq, lk, inner, heads, torch.tensor([], dtype=dtype)
                                          .element_size(), PEAK_BF16 if dtype == torch.bfloat16
                                          else PEAK_FP32)
+        main_path = dtype == torch.bfloat16 and (name, b, lq, lk, inner, heads) in K1_SHAPES
         row = dict(shape=name, dtype=dtype_name, B=b, Lq=lq, Lk=lk, H=heads, D=d,
-                   main_path=dtype == torch.bfloat16 and (name, b, lq, lk, inner, heads) in K1_SHAPES,
-                   kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, max_abs_err=max_err, mean_abs_err=mean_err, tolerance=tol)
+                   main_path=main_path, kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+                   mean_abs_err=mean_err, tolerance=tol)
         rows.append(row)
         log(f"[kernel] {name} {dtype_name} B={b} Lq={lq} Lk={lk} D={d}: max|d|={max_err:.3e} "
             f"mean|d|={mean_err:.3e} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -228,8 +241,62 @@ def kernel_phase(torch) -> dict:
         if not (ok and finite):
             raise PhaseError(f"K1 disagrees with its plain version at {name}: max {max_err:.3e}, "
                              f"mean {mean_err:.3e}, finite {finite} ({tol})")
+        lite_rows.append(k2_row(torch, q, k, v, heads, exact, row))
+        del q, k, v, exact
         torch.cuda.empty_cache()
-    return dict(rows=rows, grad_rows=grad_kernel_rows(torch, gen))
+    return dict(rows=rows, lite_rows=lite_rows, grad_rows=grad_kernel_rows(torch, gen))
+
+
+K2_EXACT_BAR = 0.03  # tests/test_flash_lite.py:27-28, K2 against exact fp32 attention
+
+
+def k2_row(torch, q, k, v, heads, exact, k1_row) -> dict:
+    """K2 on K1's inputs: flash_sdpa with FLASH_LITE on launches it once; its
+    output against flash_lite_reference under K1's bf16 bar and against the exact
+    fp32 attention under K2_EXACT_BAR; K2, its plain version and K1 timed in
+    turn. SDPA's time is the K1 row's, on the same inputs."""
+    from vexpress_torch.ops import flash, launches
+
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    name = k1_row["shape"]
+    flash.FLASH_LITE = True
+    try:
+        launches.reset()
+        out = flash.flash_sdpa(q, k, v, heads)
+        torch.cuda.synchronize()
+        ran = {key: n for key, n in launches.counts.items() if n}
+        if ran != {"flash_lite_fwd": 1}:
+            raise PhaseError(f"{name}: flash_sdpa with K2 on launched {ran}")
+        plain = flash.flash_lite_reference(q, k, v, heads).float()
+        err = (out.float() - plain).abs()
+        max_err, mean_err, plain_std = float(err.max()), float(err.mean()), float(plain.std())
+        exact_err = float((out.float() - exact).abs().max())
+        finite = bool(torch.isfinite(out).all())
+        del out, plain, err
+        # K1's bf16 bar in both types: the kernel's key tile is not the plain
+        # version's, so bf16(s - m) rounds other numbers (fp32 inputs too)
+        ok, tol = within_k1_bar(True, max_err, mean_err, plain_std)
+        ms = cuda_time_ms(torch, lambda: flash.flash_sdpa(q, k, v, heads))
+        plain_ms = cuda_time_ms(torch, lambda: flash.flash_lite_reference(q, k, v, heads),
+                                max_iters=5)
+    finally:
+        flash.FLASH_LITE = False
+    k1_ms = cuda_time_ms(torch, lambda: flash.flash_sdpa(q, k, v, heads))
+    row = dict(shape=name, dtype=k1_row["dtype"], B=b, Lq=lq, Lk=lk, H=heads, D=d,
+               main_path=k1_row["main_path"], kernel_ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
+               library_ms=k1_row["library_ms"], bound_ms=k1_row["bound_ms"],
+               bound_by=k1_row["bound_by"], exps=b * heads * lq * lk, max_abs_err=max_err,
+               mean_abs_err=mean_err, tolerance=tol, exact_max_abs_err=exact_err,
+               exact_tolerance=f"max<{K2_EXACT_BAR} vs exact fp32")
+    log(f"[kernel] K2 {name} {row['dtype']} B={b} Lq={lq} Lk={lk} D={d}: max|d|={max_err:.3e} "
+        f"mean|d|={mean_err:.3e} vs plain, max|d|={exact_err:.3e} vs exact; kernel {ms:.3f} ms, "
+        f"K1 {k1_ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {row['library_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.3f} ms ({row['bound_by']}), {row['exps']:.3e} exps")
+    if not (ok and finite and exact_err < K2_EXACT_BAR):
+        raise PhaseError(f"K2 disagrees at {name}: vs plain max {max_err:.3e} mean {mean_err:.3e} "
+                         f"({tol}), vs exact max {exact_err:.3e} (<{K2_EXACT_BAR}), finite {finite}")
+    return row
 
 
 def grad_kernel_rows(torch, gen) -> list:
@@ -443,8 +510,7 @@ def parity_phase(torch) -> dict:
     t0 = time.perf_counter()
     on_cpu = cpu(**kw)
     cpu_s = time.perf_counter() - t0
-    mse = float(np.mean((on_card.astype(np.float64) - on_cpu.astype(np.float64)) ** 2))
-    psnr = 10.0 * math.log10(1.0 / max(mse, 1e-20))
+    psnr = _psnr(on_card, on_cpu)
     max_err = float(np.abs(on_card - on_cpu).max())
     log(f"[parity] fp32 256x256, 12 frames, CFG 2.0, 2 steps: PSNR {psnr:.2f} dB, "
         f"max|d| {max_err:.3e}, card {card_s:.1f} s, cpu {cpu_s:.1f} s, launches {card_launches}")
@@ -453,6 +519,56 @@ def parity_phase(torch) -> dict:
     if not (psnr > 45.0 and np.isfinite(on_card).all()):
         raise PhaseError(f"card and CPU disagree: PSNR {psnr:.2f} dB (needs > 45)")
     return dict(psnr_db=psnr, max_abs_err=max_err, card_s=card_s, cpu_s=cpu_s,
+                launches=card_launches, cli=cli_parity_run(torch, card, cpu, kw))
+
+
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10.0 * math.log10(1.0 / max(mse, 1e-20))
+
+
+def cli_parity_run(torch, card, cpu, kw) -> dict:
+    """The CLI's configuration on the parity phase's models and inputs, card
+    against CPU: DPM-Solver++ (2M) at 2 steps, save_memory, K2 on (its fp32
+    scalar kernel on the card, its plain version on the CPU); the decoded
+    video (PSNR > 45 dB) and its median-filtered YUV420 planes (within 1)."""
+    import numpy as np
+    from vexpress_torch.ops import flash, launches
+
+    kw = dict(kw, sampler="dpmpp_2m", save_memory=True, return_latents=True)
+    out, card_launches, released = {}, {}, 0.0
+    flash.FLASH_LITE = True
+    try:
+        for name, pipe in (("card", card), ("cpu", cpu)):
+            launches.reset()
+            latents = torch.from_numpy(pipe(**kw))
+            if name == "card":
+                released = pipe.last_released_cond_mib
+            video = pipe.decode_latents(latents)
+            planes = pipe.decode_latents(latents, median_filter=True, as_yuv420=True)
+            if name == "card":
+                torch.cuda.synchronize()
+                card_launches = {k: n for k, n in launches.counts.items() if n}
+            out[name] = (video, planes)
+    finally:
+        flash.FLASH_LITE = False
+    psnr = _psnr(out["card"][0], out["cpu"][0])
+    yuv_diff = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                   for a, b in zip(out["card"][1], out["cpu"][1]))
+    log(f"[parity] CLI configuration (DPM-Solver++ 2 steps, save_memory, K2): PSNR {psnr:.2f} "
+        f"dB, YUV420 planes max|d| {yuv_diff}, released {released:.1f} MiB on the card, "
+        f"launches {card_launches}")
+    if set(card_launches) != {"flash_lite_fwd"}:
+        raise PhaseError(f"the CLI run on the card launched {card_launches}; K2 alone expected")
+    if not (psnr > 45.0 and np.isfinite(out["card"][0]).all()):
+        raise PhaseError(f"card and CPU disagree in the CLI configuration: PSNR {psnr:.2f} dB")
+    if yuv_diff > 1:
+        raise PhaseError(f"YUV420 planes differ by {yuv_diff} between card and CPU")
+    if released <= 0:
+        raise PhaseError("save_memory released nothing on the card")
+    return dict(psnr_db=psnr, yuv_max_abs_diff=yuv_diff, released_mib=released,
                 launches=card_launches)
 
 
@@ -476,6 +592,30 @@ def full_pipeline(torch, steps: int):
     return pipe, kw
 
 
+class PeakSplit:
+    """Peak allocated device memory by stretch of one pipeline call: up to
+    the first denoising-UNet call (set-up and conditioning), up to the first
+    VAE-decoder call (denoise), and the rest (decode), in GiB."""
+
+    def __init__(self, torch, pipe):
+        self.torch, self.peaks = torch, {}
+        self.hooks = [pipe.denoising_unet.register_forward_pre_hook(self._mark("conditioning")),
+                      pipe.vae.decoder.register_forward_pre_hook(self._mark("denoise"))]
+
+    def _mark(self, name):
+        def hook(*_):
+            if name not in self.peaks:
+                self.peaks[name] = self.torch.cuda.max_memory_allocated() / 2**30
+                self.torch.cuda.reset_peak_memory_stats()
+        return hook
+
+    def finish(self) -> dict:
+        self.peaks["decode"] = self.torch.cuda.max_memory_allocated() / 2**30
+        for h in self.hooks:
+            h.remove()
+        return self.peaks
+
+
 def full_phase(torch, steps: int) -> dict:
     """The streamed pipeline at SD1.5 width, bf16, 512x512, seeded random
     weights. Returns, besides times and memory, K1's launches by shape."""
@@ -486,6 +626,7 @@ def full_phase(torch, steps: int) -> dict:
     H = W = FULL_SIZE
     L, ctx, ovl = FULL_FRAMES, FULL_CONTEXT, FULL_OVERLAP
     torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     pipe, kw = full_pipeline(torch, steps)
     models = pipe.m
@@ -503,6 +644,7 @@ def full_phase(torch, steps: int) -> dict:
 
     hooks = [pipe.denoising_unet.register_forward_hook(watch("denoising_unet")),
              pipe.vae.decoder.register_forward_hook(watch("vae.decoder"))]
+    split = PeakSplit(torch, pipe)
     launches.reset()
     t0 = time.perf_counter()
     video = pipe(**kw)
@@ -513,12 +655,14 @@ def full_phase(torch, steps: int) -> dict:
         h.remove()
     n_windows = compute_context_windows(L, ctx, ovl)[0].shape[0]
     expected = expected_flash_launches(models.unet_config, H // 8, W // 8, ctx, steps * n_windows)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peaks = split.finish()
+    peak_gib = max(peaks.values())
     log(f"[full] {models.dtype} {H}x{W}, {L} frames ({n_windows} windows of {ctx}), CFG 3.5, "
         f"{steps} DDIM steps, {n_params / 1e9:.3f} B params: setup {setup_s:.1f} s, "
         f"pipeline {run_s:.1f} s, phases {json.dumps(pipe.timings)}, peak "
-        f"{peak_gib:.2f} GiB, launches {counts} (expected flash_fwd {expected}), "
-        f"flash_fwd by (B, Lq, Lk, D) {by_shape}")
+        f"{peak_gib:.2f} GiB (by stretch {json.dumps(peaks)}; {resident_gib:.2f} GiB allocated "
+        f"before set-up), launches {counts} (expected "
+        f"flash_fwd {expected}), flash_fwd by (B, Lq, Lk, D) {by_shape}")
     if video.shape != (L, H, W, 3) or video.dtype != np.uint8:
         raise PhaseError(f"output {video.shape} {video.dtype}, expected ({L}, {H}, {W}, 3) uint8")
     if nonfinite:
@@ -534,7 +678,9 @@ def full_phase(torch, steps: int) -> dict:
     return dict(flash_launches=counts.get("flash_fwd", 0), expected_launches=expected,
                 flash_launches_by_shape=[[*key, n] for key, n in sorted(by_shape.items())],
                 setup_s=setup_s, pipeline_s=run_s, phases_s=dict(pipe.timings),
-                peak_alloc_gib=peak_gib, params=n_params, steps=steps, frames=L,
+                peak_alloc_gib=peak_gib, peak_by_stretch_gib=peaks,
+                resident_before_gib=resident_gib, params=n_params,
+                steps=steps, frames=L,
                 windows=n_windows, video_std=float(video.std()))
 
 
@@ -865,6 +1011,103 @@ def train_full_phase(torch) -> dict:
                 bwd_launches_expected=[[*k, n] for k, n in sorted(expected.items())])
 
 
+CLI_STEPS = 12
+
+
+def cli_full_phase(torch) -> dict:
+    """The inference CLI on the card: build_pipeline with the CLI's defaults
+    (no checkpoint exists here, so each module keeps its seeded random
+    weights), then generate with --sampler dpmpp_2m --num_inference_steps 12
+    --save_gpu_memory, K2 on, median filter and YUV420 planes, on 44
+    synthetic 512x512 frames; the inputs stand in for prepare_inputs, which
+    needs cv2. A second, 1-step call without save_memory brings the released
+    modules back to the card."""
+    from vexpress_torch.cli import infer
+    from vexpress_torch.ops import flash, launches
+    from vexpress_torch.pipelines.context import compute_context_windows
+
+    args = infer.parse_args(["--reference_image_path", "synthetic", "--audio_path", "synthetic",
+                             "--sampler", "dpmpp_2m", "--num_inference_steps", str(CLI_STEPS),
+                             "--save_gpu_memory"])
+    size, frames, ctx = args.image_width, FULL_FRAMES, args.context_frames
+    ref, kps, wave = synthetic_inputs(size, size, frames, seed=1)
+    inputs = dict(reference_image=ref, kps_images=kps, audio=wave, video_length=frames)
+    torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    pipe = infer.build_pipeline(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    nonfinite = []
+
+    def watch(name):
+        def hook(_mod, _inp, out):
+            if not bool(torch.isfinite(out).all()):
+                nonfinite.append(name)
+        return hook
+
+    hooks = [pipe.denoising_unet.register_forward_hook(watch("denoising_unet")),
+             pipe.vae.decoder.register_forward_hook(watch("vae.decoder"))]
+    split = PeakSplit(torch, pipe)
+    flash.FLASH_LITE = True
+    try:
+        launches.reset()
+        t0 = time.perf_counter()
+        planes = infer.generate(pipe, inputs, args, output_yuv420=True)
+        run_s = time.perf_counter() - t0
+        counts = {k: n for k, n in launches.counts.items() if n}
+        by_shape = {k[1:]: n for k, n in launches.shapes.items() if k[0] == "flash_lite_fwd"}
+        peaks = split.finish()
+        peak_gib = max(peaks.values())
+        timings, released = dict(pipe.timings), pipe.last_released_cond_mib
+        off_card = sorted(pipe.released)
+        again = infer.parse_args(["--reference_image_path", "synthetic", "--audio_path",
+                                  "synthetic", "--sampler", "dpmpp_2m",
+                                  "--num_inference_steps", "1"])
+        t0 = time.perf_counter()
+        infer.generate(pipe, inputs, again, output_yuv420=True)
+        again_s = time.perf_counter() - t0
+    finally:
+        flash.FLASH_LITE = False
+        for h in hooks:
+            h.remove()
+    comps = pipe.components()
+    back = all(p.is_cuda for name in pipe.RELEASABLE_COND_MODULES
+               for p in comps[name].parameters())
+    n_windows = compute_context_windows(frames, ctx, args.context_overlap)[0].shape[0]
+    expected = expected_flash_launches(pipe.m.unet_config, size // 8, size // 8, ctx,
+                                       CLI_STEPS * n_windows)
+    log(f"[cli_full] build_pipeline {build_s:.1f} s; generate ({pipe.m.dtype}, {size}x{size}, "
+        f"{frames} frames, {n_windows} windows, DPM-Solver++ {CLI_STEPS} steps, save_memory, K2) "
+        f"{run_s:.1f} s, phases {json.dumps(timings)}, peak {peak_gib:.2f} GiB (by stretch "
+        f"{json.dumps(peaks)}; {resident_gib:.2f} GiB allocated before set-up), released "
+        f"{released:.1f} MiB ({off_card} on the host after the call), launches {counts} "
+        f"(expected flash_lite_fwd {expected}), by (B, Lq, Lk, D) {by_shape}; second 1-step "
+        f"call {again_s:.1f} s, modules back on the card {back}")
+    y, u, v = planes
+    want = ((frames, size, size), (frames, size // 2, size // 2), (frames, size // 2, size // 2))
+    if tuple(x.shape for x in planes) != want or any(str(x.dtype) != "uint8" for x in planes):
+        raise PhaseError(f"planes {[(x.shape, x.dtype) for x in planes]}, expected {want} uint8")
+    if nonfinite:
+        raise PhaseError(f"non-finite values out of {sorted(set(nonfinite))}")
+    if counts != {"flash_lite_fwd": expected}:
+        raise PhaseError(f"launches {counts}; expected flash_lite_fwd {expected} and nothing else")
+    checked = {_shape_key(row) for row in K1_SHAPES}
+    if set(by_shape) != checked:
+        raise PhaseError(f"K2 ran at shapes {sorted(by_shape)}; the kernel phase checks "
+                         f"{sorted(checked)}")
+    if released <= 0 or off_card != sorted(pipe.RELEASABLE_COND_MODULES) or not back:
+        raise PhaseError(f"save_memory: released {released} MiB, {off_card} on the host, "
+                         f"back on the card {back}")
+    return dict(lite_launches=counts["flash_lite_fwd"], expected_launches=expected,
+                lite_launches_by_shape=[[*key, n] for key, n in sorted(by_shape.items())],
+                build_s=build_s, generate_s=run_s, phases_s=timings, peak_alloc_gib=peak_gib,
+                peak_by_stretch_gib=peaks, resident_before_gib=resident_gib,
+                released_mib=released, second_call_s=again_s, steps=CLI_STEPS, frames=frames,
+                windows=n_windows, y_std=float(y.std()))
+
+
 def kernels_line(results: dict) -> list:
     """The `kernels` JSON entries: each kernel's launches on the main paths
     (inference `full`, training `train_full`) and its times summed over the
@@ -918,6 +1161,19 @@ def kernels_line(results: dict) -> list:
             library_is="scaled_dot_product_attention forward + backward",
             pair_bound_ms=sum(r["bounds"]["pair"]["ms"] for r in main_grad),
             shapes=grad_rows))
+    cli_by_shape = {tuple(key): n for *key, n in results["cli_full"]["lite_launches_by_shape"]}
+    lite_rows = results["kernel"]["lite_rows"]
+    for r in lite_rows:
+        r["launches"] = cli_by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
+    ran = [r for r in lite_rows if r["main_path"] and r["launches"]]
+    kernels.append(entry(
+        "flash_lite_fwd", "vexpress_torch/csrc/flash_fwd.cu",
+        "vexpress_tpu/ops/flash_lite.py:68 flash_lite_fwd (pallas_call :89, body _fwd_kernel :33)",
+        [(r["kernel_ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
+          r["max_abs_err"]) for r in ran], results["cli_full"]["lite_launches"],
+        plain_is="flash_lite_reference", k1_ms=sum(r["k1_ms"] for r in ran),
+        exps=sum(r["exps"] for r in ran), launches_by_path=dict(cli_full=results["cli_full"][
+            "lite_launches"]), shapes=lite_rows))
     return kernels
 
 
@@ -942,13 +1198,17 @@ def main() -> int:
     lib = flash.build()
     log(f"[build] {lib.name}: {time.perf_counter() - t0:.1f} s")
 
+    flash.FLASH_LITE = False  # K1 unless a phase turns K2 on
     results = {}
     wall = {}
     for name, run in (("kernel", lambda: kernel_phase(torch)),
                       ("parity", lambda: parity_phase(torch)),
                       ("train_parity", lambda: train_parity_phase(torch)),
                       ("full", lambda: full_phase(torch, FULL_STEPS)),
-                      ("train_full", lambda: train_full_phase(torch))):
+                      ("train_full", lambda: train_full_phase(torch)),
+                      ("cli_full", lambda: cli_full_phase(torch))):
+        gc.collect()  # what an earlier phase left must not count in this one's memory
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         results[name] = run()
         wall[name] = time.perf_counter() - t0

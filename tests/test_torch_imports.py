@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: importing vexpress_torch (every submodule,
-the training modules included) or chip_smoke.py loads neither JAX nor
-vexpress_tpu (nor flax or optax), no source file of the port names them in an
-import, entry points refuse to fall back to the CPU silently, and
-chip_smoke.py prints no result without a CUDA device or without the package
-beside it."""
+the training modules and the CLI included) or chip_smoke.py loads neither JAX
+nor vexpress_tpu (nor flax or optax), nor cv2 or yaml, which the card's
+machine lacks; no source file of the port names JAX in an import, entry
+points refuse to fall back to the CPU silently, and chip_smoke.py prints no
+result without a CUDA device or without the package beside it."""
 
 import os
 import pathlib
@@ -35,12 +35,16 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "optax") or m.startswith(("jax.", "optax.", "vexpress_tpu", "flax")))
+             if m in ("jax", "optax", "cv2", "yaml")
+             or m.startswith(("jax.", "optax.", "vexpress_tpu", "flax")))
 assert not bad, bad
 assert len(names) >= 20, names
-train = {"vexpress_torch.train", "vexpress_torch.train.config", "vexpress_torch.train.adam8bit",
-         "vexpress_torch.train.train_step"}
-assert train <= set(names), sorted(train - set(names))
+want = {"vexpress_torch.train", "vexpress_torch.train.config", "vexpress_torch.train.adam8bit",
+        "vexpress_torch.train.train_step", "vexpress_torch.cli", "vexpress_torch.cli.infer",
+        "vexpress_torch.io.torch_import", "vexpress_torch.io.inference_config",
+        "vexpress_torch.ops.flash_lite", "vexpress_torch.diffusion.dpm_solver",
+        "vexpress_torch.pipelines.kps", "vexpress_torch.utils.media_native"}
+assert want <= set(names), sorted(want - set(names))
 print("OK", len(names))
 """
     proc = _run(code)

@@ -160,15 +160,16 @@ def build_pipelines(device="cpu"):
     return jp, tp
 
 
-def pipeline_inputs(seed=3):
+def pipeline_inputs(seed=3, h=H, w=W, frames=L, ctx=CTX, ovl=OVL):
+    """Seeded inputs of one call (the params of `build_pipelines` fit any size)."""
     rng = np.random.default_rng(seed)
-    ref_img = rng.uniform(size=(H, W, 3)).astype(np.float32)
-    kps = rng.uniform(size=(L, H, W, 3)).astype(np.float32)
-    wave = (0.1 * rng.standard_normal(L * 16000 // 30 + 40)).astype(np.float32)
-    noise = rng.standard_normal((L, H // 8, W // 8, 4)).astype(np.float32)
-    return dict(reference_image=ref_img, kps_images=kps, audio_waveform=wave, width=W, height=H,
-                video_length=L, num_inference_steps=STEPS, context_frames=CTX,
-                context_overlap=OVL, latents=noise)
+    ref_img = rng.uniform(size=(h, w, 3)).astype(np.float32)
+    kps = rng.uniform(size=(frames, h, w, 3)).astype(np.float32)
+    wave = (0.1 * rng.standard_normal(frames * 16000 // 30 + 40)).astype(np.float32)
+    noise = rng.standard_normal((frames, h // 8, w // 8, 4)).astype(np.float32)
+    return dict(reference_image=ref_img, kps_images=kps, audio_waveform=wave, width=w, height=h,
+                video_length=frames, num_inference_steps=STEPS, context_frames=ctx,
+                context_overlap=ovl, latents=noise)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,22 @@
 //   owning D/4 columns), exact fp32 arithmetic; used by the parity checks.
 // Not done yet (later work): cp.async/TMA double buffering, wgmma, ldmatrix.
 //
+// K2, the LITE variant (template flag LITE, entry point vx_flash_lite_fwd).
+// Replaces: vexpress_tpu/ops/flash_lite.py::flash_lite_fwd (Pallas body
+// _fwd_kernel), which the JAX package runs in place of the library kernel
+// under VEXPRESS_FLASH_LITE=1. Its softmax differs from K1's on purpose:
+// q is multiplied by the scale cast to q's dtype and rounded to that dtype
+// when its tile is loaded (no fp32 scale*log2e fold); the running max is in
+// natural-log units; each probability is p = exp(bf16(s - m)) rounded to
+// bf16, and the running sum adds those bf16 values in fp32; P V takes the
+// bf16 p directly as its A fragments; the correction exp(m_old - m_new), the
+// sum and the accumulator stay fp32. Bound: the same operations as K1 and
+// one exp per logit. This first version takes each exp as __expf and rounds
+// it, so it spends as many SFU operations as K1; the packed bf16x2 ex2 that
+// would halve them is later work. Its key tile (64, 32 in fp32) is not the
+// TPU kernel's 512, so the running max, and with it what is rounded, differs
+// from the plain version's: they agree to bf16 rounding, not bitwise.
+//
 // Layout: q (B, Lq, H*D), k/v (B, Lk, H*D), o like q, read through the batch
 // and row strides given (elements); the last dim is contiguous. Lq and Lk must
 // be multiples of 64 and D one of 40, 80, 160 (the wrapper checks).
@@ -51,11 +67,24 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------- bf16, mma
-template <int D>
+// exp of x rounded to bf16, the result rounded to bf16 (K2's probability)
+__device__ __forceinline__ float exp_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(__expf(__bfloat162float(__float2bfloat16_rn(x)))));
+}
+
+// bf16 pair times s, rounded to bf16 (K2's q pre-scale)
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack_bf16(f.x * s, f.y * s);
+}
+
+// `scale`: K1 passes scale*log2(e), applied to the logits; K2 (LITE) passes
+// the scale rounded to q's dtype, applied to q as its tile is loaded.
+template <int D, bool LITE>
 __global__ void __launch_bounds__(128)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-              float* __restrict__ lse, int H, int Lk, Strides st, float scale_log2) {
+              float* __restrict__ lse, int H, int Lk, Strides st, float scale) {
   constexpr int BK = 64;                 // keys per shared-memory tile
   constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to the mma depth
   constexpr int KD = DP / 16;            // k-steps of S = Q K^T
@@ -94,9 +123,14 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     qf[kd][1] = c < D ? *reinterpret_cast<const uint32_t*>(p1 + c) : 0u;
     qf[kd][2] = c + 8 < D ? *reinterpret_cast<const uint32_t*>(p0 + c + 8) : 0u;
     qf[kd][3] = c + 8 < D ? *reinterpret_cast<const uint32_t*>(p1 + c + 8) : 0u;
+    if constexpr (LITE) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qf[kd][i] = scale_bf16x2(qf[kd][i], scale);
+    }
   }
 
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g+8 (log2 units)
+  // running max of rows g and g+8: log2 units (K1), natural-log units (K2)
+  float m0 = -INFINITY, m1 = -INFINITY;
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the running sums
   float acc[NT][4];
 #pragma unroll
@@ -134,10 +168,12 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] *= scale_log2;
-      s[j][1] *= scale_log2;
-      s[j][2] *= scale_log2;
-      s[j][3] *= scale_log2;
+      if constexpr (!LITE) {
+        s[j][0] *= scale;
+        s[j][1] *= scale;
+        s[j][2] *= scale;
+        s[j][3] *= scale;
+      }
       mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
       mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
     }
@@ -145,16 +181,25 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);  // 0 on the first tile
+    // 0 on the first tile
+    const float a0 = LITE ? __expf(m0 - mx0) : exp2f(m0 - mx0);
+    const float a1 = LITE ? __expf(m1 - mx1) : exp2f(m1 - mx1);
     m0 = mx0;
     m1 = mx1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - m0);
-      s[j][1] = exp2f(s[j][1] - m0);
-      s[j][2] = exp2f(s[j][2] - m1);
-      s[j][3] = exp2f(s[j][3] - m1);
+      if constexpr (LITE) {  // bf16 values, so the packing below is exact
+        s[j][0] = exp_bf16(s[j][0] - m0);
+        s[j][1] = exp_bf16(s[j][1] - m0);
+        s[j][2] = exp_bf16(s[j][2] - m1);
+        s[j][3] = exp_bf16(s[j][3] - m1);
+      } else {
+        s[j][0] = exp2f(s[j][0] - m0);
+        s[j][1] = exp2f(s[j][1] - m0);
+        s[j][2] = exp2f(s[j][2] - m1);
+        s[j][3] = exp2f(s[j][3] - m1);
+      }
       rs0 += s[j][0] + s[j][1];
       rs1 += s[j][2] + s[j][3];
     }
@@ -192,10 +237,12 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  if (lse != nullptr && t == 0) {  // natural-log LSE of the scaled logits
-    float* lp = lse + (long long)bh * gridDim.x * BQ;
-    lp[r0] = (m0 + log2f(l0)) * LN2;
-    lp[r0 + 8] = (m1 + log2f(l1)) * LN2;
+  if constexpr (!LITE) {
+    if (lse != nullptr && t == 0) {  // natural-log LSE of the scaled logits
+      float* lp = lse + (long long)bh * gridDim.x * BQ;
+      lp[r0] = (m0 + log2f(l0)) * LN2;
+      lp[r0 + 8] = (m1 + log2f(l1)) * LN2;
+    }
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   __nv_bfloat16* o0 = ob + r0 * st.o_l;
@@ -211,11 +258,12 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 }
 
 // ------------------------------------------------------------- scalar (SIMT)
-template <typename T, int D>
+// `scale` as in flash_fwd_mma
+template <typename T, int D, bool LITE>
 __global__ void __launch_bounds__(256)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                T* __restrict__ o, float* __restrict__ lse, int H, int Lk, Strides st,
-               float scale_log2) {
+               float scale) {
   constexpr int TK = 32;     // keys per shared-memory tile
   constexpr int DQ = D / 4;  // columns owned by each of a row's 4 threads
   __shared__ float ks[TK][D];
@@ -233,7 +281,7 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   float qr[DQ], acc[DQ];
 #pragma unroll
   for (int d = 0; d < DQ; ++d) {
-    qr[d] = to_f32(qp[d]) * scale_log2;
+    qr[d] = LITE ? to_f32(from_f32<T>(to_f32(qp[d]) * scale)) : to_f32(qp[d]) * scale;
     acc[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -259,41 +307,56 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       s[j] = a;
       mx = fmaxf(mx, a);
     }
-    const float alpha = exp2f(m - mx);
+    const float alpha = LITE ? __expf(m - mx) : exp2f(m - mx);
     m = mx;
     l *= alpha;
 #pragma unroll
     for (int d = 0; d < DQ; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < TK; ++j) {
-      const float p = exp2f(s[j] - m);
+      const float p = LITE ? exp_bf16(s[j] - m) : exp2f(s[j] - m);
       l += p;
 #pragma unroll
       for (int d = 0; d < DQ; ++d) acc[d] = fmaf(p, vs[j][part * DQ + d], acc[d]);
     }
   }
 
-  if (lse != nullptr && part == 0) lse[(long long)bh * gridDim.x * BQ + qi] = (m + log2f(l)) * LN2;
+  if (!LITE && lse != nullptr && part == 0)
+    lse[(long long)bh * gridDim.x * BQ + qi] = (m + log2f(l)) * LN2;
   T* op = o + b * st.o_b + qi * st.o_l + h * D + part * DQ;
   const float inv = 1.f / l;
 #pragma unroll
   for (int d = 0; d < DQ; ++d) op[d] = from_f32<T>(acc[d] * inv);
 }
 
-template <int D>
+template <int D, bool LITE>
 void launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse, int B,
-            int H, int Lq, int Lk, const Strides& st, float scale_log2, cudaStream_t s) {
+            int H, int Lq, int Lk, const Strides& st, float scale, cudaStream_t s) {
   const dim3 grid(Lq / BQ, B * H);
   if (dtype == 1) {
-    flash_fwd_mma<D><<<grid, 128, 0, s>>>(
+    flash_fwd_mma<D, LITE><<<grid, 128, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lk, st,
-        scale_log2);
+        scale);
   } else {
-    flash_fwd_simt<float, D><<<grid, 256, 0, s>>>(
+    flash_fwd_simt<float, D, LITE><<<grid, 256, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), lse, H, Lk, st, scale_log2);
+        static_cast<float*>(o), lse, H, Lk, st, scale);
   }
+}
+
+template <bool LITE>
+int forward(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
+            int H, int Lq, int Lk, int D, const Strides& st, float scale, cudaStream_t s) {
+  if ((dtype != 0 && dtype != 1) || Lq % BQ != 0 || Lk % 64 != 0 || B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 40: launch<40, LITE>(dtype, q, k, v, o, lse, B, H, Lq, Lk, st, scale, s); break;
+    case 80: launch<80, LITE>(dtype, q, k, v, o, lse, B, H, Lq, Lk, st, scale, s); break;
+    case 160: launch<160, LITE>(dtype, q, k, v, o, lse, B, H, Lq, Lk, st, scale, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -307,19 +370,20 @@ int vx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
                  int B, int H, int Lq, int Lk, int D, long long q_sb, long long q_sl,
                  long long k_sb, long long k_sl, long long v_sb, long long v_sl, long long o_sb,
                  long long o_sl, float scale, void* stream) {
-  if ((dtype != 0 && dtype != 1) || Lq % BQ != 0 || Lk % 64 != 0 || B * H > 65535)
-    return (int)cudaErrorInvalidValue;
   const Strides st{q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl};
-  const float scale_log2 = scale * LOG2E;
-  float* l = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 40: launch<40>(dtype, q, k, v, o, l, B, H, Lq, Lk, st, scale_log2, s); break;
-    case 80: launch<80>(dtype, q, k, v, o, l, B, H, Lq, Lk, st, scale_log2, s); break;
-    case 160: launch<160>(dtype, q, k, v, o, l, B, H, Lq, Lk, st, scale_log2, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return forward<false>(q, k, v, o, static_cast<float*>(lse), dtype, B, H, Lq, Lk, D, st,
+                        scale * LOG2E, static_cast<cudaStream_t>(stream));
+}
+
+// K2: the same layout and arguments without `lse`; `scale` is the softmax
+// scale already rounded to q's dtype (bf16(scale) for bf16 inputs).
+int vx_flash_lite_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
+                      int H, int Lq, int Lk, int D, long long q_sb, long long q_sl,
+                      long long k_sb, long long k_sl, long long v_sb, long long v_sl,
+                      long long o_sb, long long o_sl, float scale, void* stream) {
+  const Strides st{q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl};
+  return forward<true>(q, k, v, o, nullptr, dtype, B, H, Lq, Lk, D, st, scale,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* vx_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

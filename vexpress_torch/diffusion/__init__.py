@@ -1,3 +1,4 @@
 from .ddim import DDIMScheduler, SchedulerConfig
+from .dpm_solver import DPMSolverMultistepScheduler, DpmState
 
-__all__ = ["DDIMScheduler", "SchedulerConfig"]
+__all__ = ["DDIMScheduler", "DPMSolverMultistepScheduler", "DpmState", "SchedulerConfig"]

@@ -3,8 +3,9 @@
 The configuration V-Express uses at inference: scaled_linear betas
 [0.00085, 0.012], 1000 train steps, v-prediction, zero-terminal-SNR beta
 rescale, trailing timestep spacing, clip_sample=False. Schedule tables are
-host numpy; `step` is fp32 torch math on the sample's device. This slice
-ports the deterministic step (eta=0).
+host numpy; `step` is fp32 torch math on the sample's device. With eta > 0
+the caller draws the step's unit noise (from its own torch.Generator) and
+passes it in.
 """
 
 from __future__ import annotations
@@ -87,9 +88,15 @@ class DDIMScheduler:
         return ts
 
     def step(self, model_output: torch.Tensor, timestep: int, sample: torch.Tensor,
-             num_inference_steps: int) -> torch.Tensor:
-        """One deterministic DDIM step (diffusers DDIMScheduler.step with
-        clip_sample off and eta=0); returns prev_sample in sample's dtype."""
+             num_inference_steps: int, eta: float = 0.0,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One DDIM step (diffusers DDIMScheduler.step with clip_sample off);
+        returns prev_sample in sample's dtype. eta=0 is deterministic; eta > 0
+        adds the DDIM paper's (Song et al. 2020, eq. 12) term sigma * noise,
+        sigma = eta * sqrt((1-a_prev)/(1-a_t)) * sqrt(1 - a_t/a_prev), and
+        needs `noise` (unit Gaussian, sample's shape)."""
+        if eta != 0.0 and noise is None:
+            raise ValueError("eta > 0 requires noise (stochastic DDIM)")
         cfg = self.config
         t = int(timestep)
         prev_t = t - cfg.num_train_timesteps // num_inference_steps
@@ -118,7 +125,16 @@ class DDIMScheduler:
             raise ValueError(f"unsupported prediction_type: {cfg.prediction_type}")
         if cfg.clip_sample:
             pred_x0 = pred_x0.clamp(-1.0, 1.0)
-        prev = torch.sqrt(alpha_prod_prev) * pred_x0 + torch.sqrt(1.0 - alpha_prod_prev) * pred_eps
+        if eta == 0.0:
+            prev = (torch.sqrt(alpha_prod_prev) * pred_x0
+                    + torch.sqrt(1.0 - alpha_prod_prev) * pred_eps)
+        else:
+            variance = ((1.0 - alpha_prod_prev) / torch.clamp(beta_prod_t, min=1e-20)
+                        * (1.0 - alpha_prod_t / alpha_prod_prev))
+            sigma = eta * torch.sqrt(torch.clamp(variance, min=0.0))
+            dir_coeff = torch.sqrt(torch.clamp(1.0 - alpha_prod_prev - sigma**2, min=0.0))
+            prev = (torch.sqrt(alpha_prod_prev) * pred_x0 + dir_coeff * pred_eps
+                    + sigma * noise.float())
         return prev.to(sample.dtype)
 
     # --------------------------------------------------------------- training

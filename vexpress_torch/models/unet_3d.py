@@ -51,6 +51,26 @@ class UNetConfig:
     # block boundaries in the backward pass (the JAX package's nn.remat)
     gradient_checkpointing: bool = False
 
+    @classmethod
+    def from_diffusers_json(cls, path: str, **overrides) -> "UNetConfig":
+        """From a diffusers UNet2DConditionModel config.json (the reference's
+        --unet_config_path, inference.py:30,77-90): geometry fields only; the
+        V-Express additions come from `overrides`."""
+        import json
+
+        with open(path) as f:
+            d = json.load(f)
+        names = ("in_channels", "out_channels", "block_out_channels", "layers_per_block",
+                 "attention_head_dim", "cross_attention_dim", "norm_num_groups", "norm_eps",
+                 "flip_sin_to_cos", "freq_shift")
+        kw = {k: tuple(d[k]) if isinstance(d[k], list) else d[k] for k in names if k in d}
+        if isinstance(kw.get("attention_head_dim"), tuple):
+            raise ValueError("per-block attention_head_dim lists (SDXL-style configs) are not "
+                             "supported; V-Express uses the SD1.5 UNet geometry (uniform "
+                             "attention_head_dim, reference inference.py:30)")
+        kw.update(overrides)
+        return cls(**kw)
+
     def __post_init__(self):
         if self.fusion_blocks not in ("full", "midup"):
             raise ValueError(f"fusion_blocks must be 'full' or 'midup', got {self.fusion_blocks!r}")

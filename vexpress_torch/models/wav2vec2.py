@@ -9,7 +9,8 @@ Waveforms are (B, T); outputs (B, frames, hidden)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import re
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -172,3 +173,22 @@ class Wav2Vec2Model(nn.Module):
             waveform = normalize_waveform(waveform)
         feats = self.feature_extractor(waveform)
         return self.encoder(self.feature_projection(feats))
+
+
+def convert_wav2vec2_state_dict(state_dict) -> Dict[str, torch.Tensor]:
+    """transformers Wav2Vec2Model.state_dict() -> this module's state dict.
+    The keys are the same; the weight-normed positional conv (weight_g and
+    weight_v, or the parametrizations' original0/original1) becomes its
+    effective weight g * v / ||v||, the norm over dims (0, 1) per kernel tap
+    (torch weight_norm with dim=2), in fp32; masked_spec_embed is dropped."""
+    sd = {k: torch.as_tensor(v).float() for k, v in state_dict.items()
+          if not k.endswith("masked_spec_embed")}
+    pat = r"pos_conv_embed\.conv\.(weight_g|parametrizations\.weight\.original0)$"
+    g_key = next((k for k in sd if re.search(pat, k)), None)
+    v_key = next((k for k in sd if re.search(pat.replace("weight_g", "weight_v")
+                                              .replace("original0", "original1"), k)), None)
+    if g_key and v_key:
+        g, v = sd.pop(g_key), sd.pop(v_key)
+        norm = torch.sqrt((v**2).sum(dim=(0, 1), keepdim=True))
+        sd["encoder.pos_conv_embed.conv.weight"] = g * v / norm
+    return sd

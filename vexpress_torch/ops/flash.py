@@ -13,6 +13,11 @@ differentiates. On the card, a call whose inputs need a gradient goes through
 `FlashAttention`, whose backward launches the backward kernels. There is no
 fallback between kernel and plain version: a CUDA tensor that the kernels
 cannot take, a failed build or a failed launch raises.
+
+With `FLASH_LITE` on (VEXPRESS_FLASH_LITE=1 at import, as the JAX package
+reads it), the shapes of `flash_lite.lite_supported` go to K2 instead: the
+LITE variant of csrc/flash_fwd.cu on the card, `flash_lite_reference` on the
+CPU. K2 has no backward, so it is for inference processes only.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .flash_lite import flash_lite_reference, lite_supported
 from .launches import counts, shapes
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -38,6 +44,10 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_DIMS = (40, 80, 160)
 _ROWS = 64  # rows per block; Lq and Lk must be multiples of it
 _LOGIT_BUDGET = 1 << 26  # fp32 (B, H, chunk, Lk) elements per chunk of the plain backward
+
+# K2 in place of K1 where its shapes allow (see the module docstring); tests
+# and chip_smoke.py set the attribute
+FLASH_LITE = os.environ.get("VEXPRESS_FLASH_LITE", "0") == "1"
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -103,6 +113,9 @@ def _library():
             lib.vx_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                          ll, ll, ll, ll, ll, ll, ll, ll, f, p]
             lib.vx_flash_fwd.restype = i
+            lib.vx_flash_lite_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                              ll, ll, ll, ll, ll, ll, ll, ll, f, p]
+            lib.vx_flash_lite_fwd.restype = i
             lib.vx_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
             lib.vx_flash_bwd_dkv.restype = i
             lib.vx_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
@@ -257,6 +270,27 @@ def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool):
     return out, lse
 
 
+def launch_lite(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                scale: float) -> torch.Tensor:
+    """K2, the LITE variant of csrc/flash_fwd.cu, on the current stream. The
+    kernel multiplies q by the scale cast to q's dtype, as the TPU kernel does."""
+    _check_kernel_inputs(heads, q=q, k=k, v=v)
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    lib = _library()
+    out = torch.empty_like(q)
+    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+    with torch.cuda.device(q.device):
+        rc = lib.vx_flash_lite_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _dtype_code(q), b, heads,
+            lq, lk, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1), scale_q, _stream(q))
+    _raise_on(rc, "K2 forward")
+    counts["flash_lite_fwd"] += 1
+    shapes[("flash_lite_fwd", b, lq, lk, d)] += 1
+    return out
+
+
 def bwd_di(do: torch.Tensor, o: torch.Tensor, heads: int) -> torch.Tensor:
     """di = rowsum(do * o) per (batch, head, query), fp32 (B, H, Lq): the
     plain reduction before the backward kernels (the TPU path leaves it to
@@ -360,11 +394,23 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     D in {40, 80, 160}, Lq and Lk multiples of 64, contiguous); when grad mode
     is on and an input requires a gradient, through `FlashAttention`, whose
     backward launches csrc/flash_bwd.cu. Anything else on the card raises. CPU
-    tensors run `flash_sdpa_reference`."""
+    tensors run `flash_sdpa_reference`.
+
+    With `FLASH_LITE` on, shapes that `lite_supported` takes go to K2
+    (`launch_lite` on the card, `flash_lite_reference` on the CPU); K2 has no
+    backward, so an input that requires a gradient raises."""
     _check(q, k, v, heads)
     d = q.shape[2] // heads
     if scale is None:
         scale = d**-0.5
+    if FLASH_LITE and lite_supported(q.shape[1], k.shape[1], d):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            raise ValueError("VEXPRESS_FLASH_LITE is on and an attention input requires a "
+                             "gradient: K2 has no backward (turn VEXPRESS_FLASH_LITE off "
+                             "for training)")
+        if q.device.type == "cpu":
+            return flash_lite_reference(q, k, v, heads, scale)
+        return launch_lite(q, k, v, heads, scale)
     if q.device.type == "cpu":
         return flash_sdpa_reference(q, k, v, heads, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

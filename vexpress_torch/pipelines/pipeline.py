@@ -1,29 +1,33 @@
 """VExpressPipeline: streamed inference. Counterpart of
-vexpress_tpu/pipelines/pipeline.py (`mode="streamed"`, `sampler="ddim"`,
-`save_memory=False`), on the exact unbucketed path the JAX package takes off
-the TPU.
+vexpress_tpu/pipelines/pipeline.py in `mode="streamed"`, on the exact
+unbucketed path the JAX package takes off the TPU: DDIM (eta 0 or above) or
+DPM-Solver++ (2M), `strength`, `save_memory`, YUV420 output. The fused and
+sharded modes, `piecewise` and `shape_bucketing` are not ported.
 
 The window set is a static [N, context_frames] index table computed once
 (the reference builds its context queue with step=0 for every denoise step).
 Each denoise step gathers one window group, runs the UNet under CFG
 (uncond half first, with zero uncond kps/audio/reference inputs and the
 zero-KV attention shortcut), scatter-adds the 1/count-weighted predictions
-into an fp32 accumulator and applies one DDIM step to all frames. Every
-window reads pre-step latents and the DDIM update is elementwise, so this
-equals the reference's sequential per-window loop.
+into an fp32 accumulator and applies one sampler step to all frames. Every
+window reads pre-step latents and the update is elementwise, so this equals
+the reference's sequential per-window loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Set
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..diffusion.ddim import DDIMScheduler
+from ..diffusion.dpm_solver import DPMSolverMultistepScheduler
 from ..models.audio_projection import AudioProjection
 from ..models.unet_2d import ReferenceUNet2D
 from ..models.unet_3d import DenoisingUNet3D, UNetConfig
@@ -32,7 +36,7 @@ from ..models.vkps_guider import VKpsGuider
 from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from .audio import audio_frame_windows
 from .context import compute_context_windows
-from .media import median_filter_3d, to_uint8
+from .media import median_filter_3d, to_uint8, to_yuv420
 
 LATENT_SCALE = 0.18215
 
@@ -50,6 +54,23 @@ def _window_tables(windows: np.ndarray, inv_counts: np.ndarray, window_group: in
     return win_idx.reshape(n_groups, g, win_size).astype(np.int64), win_w.astype(np.float32)
 
 
+def blend_windows(predict_fn, latents: torch.Tensor, t: int,
+                  cond_of_group: Callable[[int], Any], win_idx: np.ndarray,
+                  win_w: np.ndarray) -> torch.Tensor:
+    """The fp32 sum over window groups of 1/count-weighted predictions:
+    `predict_fn(lat, t, w_idx, cond_of_group(gi)) -> pred` maps group gi's
+    (g, win, h, w, 4) window latents to CFG-combined predictions."""
+    idx = torch.as_tensor(win_idx, device=latents.device)
+    weights = torch.as_tensor(win_w, device=latents.device)
+    acc = torch.zeros_like(latents, dtype=torch.float32)
+    for gi in range(idx.shape[0]):
+        w_idx = idx[gi]
+        pred = predict_fn(latents[w_idx], t, w_idx, cond_of_group(gi))
+        pred = pred.float() * weights[gi][..., None, None, None]
+        acc.index_add_(0, w_idx.reshape(-1), pred.reshape((-1,) + pred.shape[2:]))
+    return acc
+
+
 def build_blended_denoise_step(
     predict_fn,
     scheduler: DDIMScheduler,
@@ -58,7 +79,7 @@ def build_blended_denoise_step(
     num_inference_steps: int,
     window_group: int = 1,
 ):
-    """One denoise step: gather windows -> predict in groups of
+    """One DDIM denoise step: gather windows -> predict in groups of
     `window_group` -> scatter-add 1/count-weighted predictions -> DDIM step.
 
     `predict_fn(lat, t, w_idx, cond) -> pred` maps (g, win, h, w, 4) window
@@ -66,17 +87,14 @@ def build_blended_denoise_step(
     win_idx, win_w = _window_tables(windows, inv_counts, window_group)
 
     def step_fn(latents: torch.Tensor, t: int, cond) -> torch.Tensor:
-        idx = torch.as_tensor(win_idx, device=latents.device)
-        weights = torch.as_tensor(win_w, device=latents.device)
-        acc = torch.zeros_like(latents, dtype=torch.float32)
-        for gi in range(idx.shape[0]):
-            w_idx = idx[gi]
-            pred = predict_fn(latents[w_idx], t, w_idx, cond)
-            pred = pred.float() * weights[gi][..., None, None, None]
-            acc.index_add_(0, w_idx.reshape(-1), pred.reshape((-1,) + pred.shape[2:]))
+        acc = blend_windows(predict_fn, latents, t, lambda _gi: cond, win_idx, win_w)
         return scheduler.step(acc, t, latents, num_inference_steps)
 
     return step_fn
+
+
+def _module_tensors(mod: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return dict(itertools.chain(mod.named_parameters(), mod.named_buffers()))
 
 
 @dataclasses.dataclass
@@ -98,6 +116,11 @@ class VExpressPipeline:
     passes another) in `models.dtype`, with PyTorch's default init; load
     weights with `vexpress_torch.io` before use."""
 
+    # save_memory moves these to host copies once conditioning is done (the
+    # reference's --save_gpu_memory frees them, v_express_pipeline.py:473-483);
+    # the kps guider stays, since save_memory runs it per window group
+    RELEASABLE_COND_MODULES = ("reference_net", "wav2vec2", "audio_projection")
+
     def __init__(self, models: PipelineModels, device=None,
                  scheduler: Optional[DDIMScheduler] = None):
         self.device = resolve_device(device)
@@ -113,6 +136,9 @@ class VExpressPipeline:
             mod.to(device=self.device, dtype=models.dtype).eval().requires_grad_(False)
         self.scheduler = scheduler or DDIMScheduler()
         self.timings: Dict[str, float] = {}
+        self.released: Set[str] = set()  # conditioning modules now on their host copies
+        self.last_released_cond_mib = 0.0
+        self._host_cond: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def components(self) -> Dict[str, torch.nn.Module]:
         """The modules keyed as the JAX pipeline's param tree."""
@@ -123,6 +149,52 @@ class VExpressPipeline:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------ save_memory module moves
+
+    def keep_host_copies(self) -> None:
+        """Take host copies of the releasable modules' tensors now (the
+        loader calls this once the weights are in), so that releasing them
+        copies nothing back. Call it again after changing their weights: a
+        release swaps the modules onto these copies."""
+        comps = self.components()
+        self.ensure_conditioning_params()
+        with torch.inference_mode(False):
+            for name in self.RELEASABLE_COND_MODULES:
+                self._host_cond[name] = {k: v.detach().to("cpu")
+                                         for k, v in _module_tensors(comps[name]).items()}
+
+    def release_conditioning_params(self) -> float:
+        """Put the reference net, wav2vec2 and the audio projection on their
+        host copies (taken here if the loader did not), freeing their device
+        memory; returns the MiB freed. The caching allocator hands the memory
+        to later work on the same stream only, so kernels already queued that
+        read these tensors are safe."""
+        comps = self.components()
+        freed = 0
+        with torch.inference_mode(False):  # plain tensors, even when called from __call__
+            for name in self.RELEASABLE_COND_MODULES:
+                if name in self.released:
+                    continue
+                tensors = _module_tensors(comps[name])
+                if name not in self._host_cond:
+                    self._host_cond[name] = {k: v.detach().to("cpu") for k, v in tensors.items()}
+                host = self._host_cond[name]
+                for k, v in tensors.items():
+                    if v.device != host[k].device:
+                        freed += v.numel() * v.element_size()
+                    v.data = host[k]
+                self.released.add(name)
+        return freed / 2**20
+
+    def ensure_conditioning_params(self) -> None:
+        """Bring released modules back to the device, in their dtype."""
+        comps = self.components()
+        with torch.inference_mode(False):
+            for name in sorted(self.released):
+                for v in _module_tensors(comps[name]).values():
+                    v.data = v.data.to(self.device)
+                self.released.discard(name)
 
     # ------------------------------------------------------------ conditioning
 
@@ -145,6 +217,15 @@ class VExpressPipeline:
             kps_images = kps_images.to(self.m.dtype) / 255.0
         return self.v_kps_guider(kps_images[None])[0]
 
+    def _kps_features_window(self, kps_frames: torch.Tensor) -> torch.Tensor:
+        """save_memory's conditioning of one window group: (g, win, H, W, 3)
+        raw frames -> (g, win, h, w, C). The guider is per frame, so this
+        equals gathering the whole video's features."""
+        g, win = kps_frames.shape[:2]
+        x = kps_frames.reshape((g * win,) + kps_frames.shape[2:])
+        feats = self._kps_features(x if x.dtype == torch.uint8 else x.to(self.m.dtype))
+        return feats.reshape((g, win) + feats.shape[1:])
+
     def _audio_tokens(self, waveform: torch.Tensor, video_length: int,
                       num_pad: int) -> torch.Tensor:
         """(T,) -> (L, tokens, cross_dim)."""
@@ -158,15 +239,20 @@ class VExpressPipeline:
         return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
 
     def decode_latents(self, latents: torch.Tensor, chunk: int = 16, median_filter: bool = False,
-                       as_uint8: bool = False) -> np.ndarray:
+                       as_uint8: bool = False, as_yuv420: bool = False):
         """(L, h, w, 4) -> (L, H, W, 3), decoded `chunk` frames at a time.
-        Float32 in [0, 1], or uint8 when `as_uint8`."""
+        Float32 in [0, 1], uint8 when `as_uint8`, or the (Y, U, V) uint8
+        planes of `to_yuv420` when `as_yuv420`."""
+        if as_uint8 and as_yuv420:
+            raise ValueError("pick one of as_uint8 / as_yuv420")
         latents = torch.as_tensor(latents, device=self.device)
         with torch.inference_mode():
             video = torch.cat([self._decode_chunk(latents[i : i + chunk])
                                for i in range(0, latents.shape[0], chunk)], dim=0)
             if median_filter:
                 video = median_filter_3d(video)
+            if as_yuv420:
+                return tuple(p.cpu().numpy() for p in to_yuv420(video))
             if as_uint8:
                 return to_uint8(video).cpu().numpy()
             return video.float().cpu().numpy()
@@ -178,9 +264,9 @@ class VExpressPipeline:
         dt = self.m.dtype
 
         def predict(lat, t, w_idx, cond):
-            kps_feat, audio_tok, ref_feats, ref_scale, audio_scale = cond
+            kps_feat, audio_tok, ref_feats, ref_scale, audio_scale, pregathered = cond
             lat = lat.to(dt)
-            kps = kps_feat[w_idx].to(dt)
+            kps = (kps_feat if pregathered else kps_feat[w_idx]).to(dt)
             aud = audio_tok[w_idx].to(dt)
             if do_cfg:
                 lat = torch.cat([lat, lat], dim=0)
@@ -197,12 +283,62 @@ class VExpressPipeline:
         return predict
 
     def _denoise_streamed(self, latents, timesteps, windows, inv_counts, cond,
-                          num_inference_steps, guidance_scale, window_group):
-        step = build_blended_denoise_step(self._predict_fn(guidance_scale), self.scheduler,
-                                          windows, inv_counts, num_inference_steps, window_group)
-        for t in timesteps:
-            latents = step(latents, int(t), cond)
+                          num_inference_steps, guidance_scale, window_group, sampler="ddim",
+                          eta=0.0, generator=None, kps_raw_host=None, progress_callback=None):
+        """The denoise loop. `cond` = (kps_feat, audio_tok, ref_feats,
+        ref_scale, audio_scale); with `kps_raw_host` (save_memory) kps_feat is
+        None and each window group's guider features are computed from its
+        raw frames when the group runs: those frames are gathered on the host
+        and kept on the device while the window table's frames fit
+        VEXPRESS_SAVEMEM_DEV_CACHE_MB (2048 by default), else uploaded at
+        every step."""
+        win_idx, win_w = _window_tables(windows, inv_counts, window_group)
+        kps_feat, *rest = cond
+        if kps_raw_host is None:
+            def cond_of_group(_gi):
+                return (kps_feat, *rest, False)
+        else:
+            budget = int(os.environ.get("VEXPRESS_SAVEMEM_DEV_CACHE_MB", "2048")) << 20
+            table_bytes = kps_raw_host.dtype.itemsize * kps_raw_host[0].size * win_idx.size
+            raw_groups = None
+            if table_bytes <= budget:
+                raw_groups = [self._upload_kps(kps_raw_host[win_idx[gi]])
+                              for gi in range(win_idx.shape[0])]
+
+            def cond_of_group(gi):
+                raw = (raw_groups[gi] if raw_groups is not None
+                       else self._upload_kps(kps_raw_host[win_idx[gi]]))
+                return (self._kps_features_window(raw), *rest, True)
+
+        predict = self._predict_fn(guidance_scale)
+        if sampler == "dpmpp_2m":
+            dpm_step = DPMSolverMultistepScheduler(self.scheduler.config).build_step(
+                num_inference_steps)
+        # the grid index of the first step: > 0 when `strength` trimmed the
+        # schedule (the DPM tables cover the full grid)
+        idx0 = num_inference_steps - len(timesteps)
+        prev_x0, has_prev = torch.zeros_like(latents), False
+        for i, t in enumerate(timesteps):
+            t = int(t)
+            acc = blend_windows(predict, latents, t, cond_of_group, win_idx, win_w)
+            if sampler == "dpmpp_2m":
+                latents, prev_x0, has_prev = dpm_step(acc, idx0 + i, latents, prev_x0, has_prev)
+            else:
+                noise = (None if eta == 0.0 else
+                         torch.randn(latents.shape, generator=generator, device=latents.device))
+                latents = self.scheduler.step(acc, t, latents, num_inference_steps, eta=eta,
+                                              noise=noise)
+            if progress_callback is not None:
+                self._sync()
+                progress_callback(i, t)
         return latents
+
+    def _upload_kps(self, frames: np.ndarray) -> torch.Tensor:
+        """Raw kps frames to the device: uint8 as they are, float in the
+        compute dtype."""
+        if frames.dtype == np.uint8:
+            return torch.from_numpy(frames).to(self.device)
+        return torch.as_tensor(frames, dtype=self.m.dtype, device=self.device)
 
     # -------------------------------------------------------------------- main
 
@@ -216,7 +352,10 @@ class VExpressPipeline:
         video_length: Optional[int] = None,
         num_inference_steps: int = 25,
         guidance_scale: float = 3.5,
-        sampler: str = "ddim",
+        strength: float = 1.0,
+        eta: float = 0.0,  # stochastic DDIM (Song et al. eq. 12); 0 = the reference's
+        sampler: str = "ddim",  # or "dpmpp_2m" (DPM-Solver++ 2M)
+        context_schedule: str = "uniform",  # the only schedule the reference ships
         context_frames: int = 24,
         context_overlap: int = 4,
         reference_attention_weight: float = 0.95,
@@ -229,16 +368,34 @@ class VExpressPipeline:
         return_latents: bool = False,
         median_filter: bool = False,
         output_uint8: bool = False,
+        output_yuv420: bool = False,  # (Y, U, V) uint8 planes for the native encoder
         latents: Optional[np.ndarray] = None,  # (L, h, w, 4) unit initial noise
-    ) -> np.ndarray:
+        progress_callback=None,  # progress_callback(step_index, timestep) after each step
+    ):
         """Generate a talking-head video: (L, H, W, 3) float32 in [0,1], or
-        uint8 when `output_uint8`; the final latents when `return_latents`."""
+        uint8 when `output_uint8`, or (Y, U, V) planes when `output_yuv420`;
+        the final latents when `return_latents`.
+
+        `strength` < 1 runs only the last `strength` fraction of the schedule
+        (the reference's get_timesteps). `eta` > 0 draws each step's noise
+        from a torch.Generator seeded by `seed` (the one that draws the
+        initial latents when they are not given). `save_memory` keeps the raw
+        kps frames on the host, runs the guider per window group and moves
+        the reference net, wav2vec2 and audio projection to their host copies
+        once conditioning is done (`last_released_cond_mib`); the next call
+        brings them back."""
         if mode != "streamed":
             raise NotImplementedError(f"mode={mode!r}: only 'streamed' is ported")
-        if sampler != "ddim":
-            raise NotImplementedError(f"sampler={sampler!r}: only 'ddim' is ported")
-        if save_memory:
-            raise NotImplementedError("save_memory is not ported yet")
+        if sampler not in ("ddim", "dpmpp_2m"):
+            raise ValueError(f"unknown sampler {sampler!r}; choose 'ddim' or 'dpmpp_2m'")
+        if sampler == "dpmpp_2m" and eta != 0.0:
+            raise ValueError("eta > 0 is the stochastic-DDIM knob; "
+                             "dpmpp_2m is a deterministic ODE solver (use eta=0)")
+        if not 0.0 < strength <= 1.0:
+            raise ValueError(f"strength must be in (0, 1], got {strength}")
+        if context_schedule != "uniform":
+            # the reference's get_context_scheduler has only "uniform"
+            raise ValueError(f"unknown context_schedule {context_schedule!r}")
         if video_length is None:
             video_length = len(kps_images)
         if len(kps_images) != video_length:
@@ -255,19 +412,24 @@ class VExpressPipeline:
 
         with torch.inference_mode():
             t0 = time.perf_counter()
+            # a previous save_memory call may have released these
+            self.ensure_conditioning_params()
             kps_images = np.asarray(kps_images)
-            kps_dev = (torch.from_numpy(kps_images).to(dev) if kps_images.dtype == np.uint8
-                       else torch.as_tensor(kps_images, dtype=dt, device=dev))
             ref_latent = self._encode_reference(torch.as_tensor(reference_image, dtype=dt,
                                                                 device=dev))
             t0 = mark("encode reference latent", t0)
             ref_feats = self._reference_features(ref_latent, do_cfg)
             t0 = mark("reference-net features", t0)
-            kps_feat = self._kps_features(kps_dev)
-            t0 = mark("kps features", t0)
+            kps_feat = None
+            if not save_memory:
+                kps_feat = self._kps_features(self._upload_kps(kps_images))
+                t0 = mark("kps features", t0)
             audio_tok = self._audio_tokens(torch.as_tensor(audio_waveform, dtype=dt, device=dev),
                                            video_length, num_pad_audio_frames)
             t0 = mark("audio tokens", t0)
+            self.last_released_cond_mib = 0.0
+            if save_memory:
+                self.last_released_cond_mib = self.release_conditioning_params()
 
             windows, inv_counts = compute_context_windows(video_length, context_frames,
                                                           context_overlap)
@@ -277,22 +439,29 @@ class VExpressPipeline:
                 if tuple(latents.shape) != (video_length, h, w, 4):
                     raise ValueError(f"latents shape {tuple(latents.shape)} != "
                                      f"{(video_length, h, w, 4)}")
-            else:
-                gen = torch.Generator(device=dev).manual_seed(seed)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            if latents is None:
                 latents = torch.randn((video_length, h, w, 4), generator=gen, device=dev)
             latents = latents * self.scheduler.init_noise_sigma
 
             ref_scale = torch.tensor(reference_attention_weight, dtype=dt, device=dev)
             audio_scale = torch.tensor(audio_attention_weight, dtype=dt, device=dev)
             timesteps = self.scheduler.timesteps(num_inference_steps)
+            if strength < 1.0:
+                # the last `strength` fraction of the schedule; steps keep
+                # the full grid's spacing
+                init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
+                timesteps = timesteps[max(num_inference_steps - init_timestep, 0):]
             latents = self._denoise_streamed(
                 latents, timesteps, windows, inv_counts,
                 (kps_feat, audio_tok, ref_feats, ref_scale, audio_scale),
-                num_inference_steps, guidance_scale, window_group)
+                num_inference_steps, guidance_scale, window_group, sampler=sampler, eta=eta,
+                generator=gen, kps_raw_host=kps_images if save_memory else None,
+                progress_callback=progress_callback)
             t0 = mark("denoise", t0)
             if return_latents:
                 return latents.cpu().numpy()
             video = self.decode_latents(latents, median_filter=median_filter,
-                                        as_uint8=output_uint8)
+                                        as_uint8=output_uint8, as_yuv420=output_yuv420)
             mark("decode", t0)
             return video
