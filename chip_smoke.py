@@ -35,6 +35,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                 --save_gpu_memory, K2 on, median filter and YUV420 output, on
                 44 synthetic 512x512 frames; then a 1-step call without
                 save_memory brings the released modules back
+  attn_variants T1 (K1's kernel at other tilings) and T2 (full-mask splash MHA)
+                at the attention-variant bench's shape (48, 8, 4096, 40) bf16:
+                each row against its plain version and against exact fp32
+                attention beside K1, timed beside K1, SDPA and the bound, and
+                each kernel against the other's plain version as a control of
+                the bar; then the bench's entry point (vexpress_torch.tools.
+                bench_attn_variants.main) once on the card, whose launches are
+                these kernels' counts
+  trace         the CLI's generate on the parity phase's models with
+                --profile_dir, whose trace must hold the port's flash kernel
 
 It prints a `kernels` JSON line and, as its last line, the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -47,8 +57,10 @@ from __future__ import annotations
 import gc
 import json
 import math
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
@@ -187,6 +199,23 @@ def within_k1_grad_bar(bf16: bool, max_err: float, mean_err: float, ref_std: flo
 
 
 LSE_BAR = 2e-5  # fp32 log-sum-exp against the plain version (measured <= 2e-6)
+
+
+def within_variant_bar(max_err: float, mean_err: float, ref_std: float, ref_max: float):
+    """T1 or T2 in bf16 against its own plain version, which does the same
+    arithmetic (T1 rounds p to bf16 for P V, T2 keeps p in fp32), so only the
+    final rounding to bf16 may differ: within K1's bf16 bar and, tighter, max
+    |d| <= 1 bf16 ulp of max|ref| and mean <= 1e-4 std(ref). The kernels read
+    1 ulp and 0.8-1.0e-5 std(ref) at the bench's shape; one kernel's
+    arithmetic against the other's plain version reads ~1.2e-3 std(ref) (the
+    attn_variants phase's controls), so the bar tells p rounded to bf16 from p
+    kept in fp32."""
+    k1_ok, _ = within_k1_bar(True, max_err, mean_err, ref_std)
+    ulp = 2.0 ** (math.floor(math.log2(max(ref_max, 1e-30))) - 7)
+    max_bar, mean_bar = ulp, 1e-4 * ref_std
+    return (k1_ok and max_err <= max_bar and mean_err <= mean_bar,
+            f"max<={max_bar:.2e}, mean<={mean_bar:.2e} vs plain (std(ref) {ref_std:.3e}, "
+            f"max|ref| {ref_max:.3e})")
 
 
 def kernel_phase(torch) -> dict:
@@ -410,6 +439,131 @@ def grad_kernel_rows(torch, gen) -> list:
     return rows
 
 
+VARIANT_KERNELS = {"t1": "flash_fwd_variant", "t2": "splash_fwd"}
+VARIANT_PLAIN = ("flash_fwd_variant_reference", "splash_mha_reference", "flash_sdpa_reference")
+
+
+def attn_variants_phase(torch) -> dict:
+    """T1 and T2 at the attention-variant bench's shape, on the bench's own
+    rows (`bench_attn_variants.variant_rows`): each row launches its kernel
+    once and is held against its plain version at the kernel's key tile (T1:
+    flash_fwd_variant_reference, T2: splash_mha_reference on the same
+    pre-scaled q) under `within_variant_bar`; its error against exact fp32
+    attention of the unscaled q is printed beside K1's on the same inputs; the
+    row, its plain version, K1 and SDPA are timed and the bound reckoned.
+    Controls: each kernel against the other's plain version on the same
+    pre-scaled q must fail that bar. Then the bench's main() runs once on the
+    card with the counts reset: those launches are T1's and T2's on this
+    slice's path."""
+    import torch.nn.functional as F
+    from vexpress_torch.ops import flash, launches
+    from vexpress_torch.ops.flash_variants import flash_fwd_variant, flash_fwd_variant_reference
+    from vexpress_torch.ops.splash import splash_mha_fwd, splash_mha_reference
+    from vexpress_torch.tools import bench_attn_variants as bench
+
+    dev = torch.device("cuda")
+    b, h, l, d = bench.parse_args([]).shape  # (48, 8, 4096, 40), bf16
+    scale = d**-0.5
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(b, h, l, d, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    qs = bench.prescale(q, scale)
+    packed = [t.transpose(1, 2).reshape(b, l, h * d) for t in (q, k, v)]
+    exact = (flash.flash_sdpa_reference(*(t.float() for t in packed), h)
+             .reshape(b, l, h, d).transpose(1, 2))
+    k1_out = flash.flash_sdpa(*packed, h).reshape(b, l, h, d).transpose(1, 2)
+    k1_exact_err = float((k1_out.float() - exact).abs().max())
+    del k1_out
+    k1_ms = cuda_time_ms(torch, lambda: flash.flash_sdpa(*packed, h))
+    sdpa_ms = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+    bound, bound_by = k1_bound_ms(b, l, l, h * d, h, 2, PEAK_BF16)
+    log(f"[attn_variants] (B, H, L, D) = {(b, h, l, d)} bf16: K1 {k1_ms:.3f} ms, max|d| "
+        f"{k1_exact_err:.3e} vs exact fp32; sdpa {sdpa_ms:.3f} ms; bound {bound:.3f} ms "
+        f"({bound_by})")
+    rows = []
+    for name, fn in bench.variant_rows(q, k, v, scale):
+        kernel = VARIANT_KERNELS.get(name[:2])
+        if kernel is None:  # sdpa_dispatch is K1, checked by the kernel phase
+            continue
+        launches.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        ran = {key: n for key, n in launches.counts.items() if n}
+        if ran != {kernel: 1}:
+            raise PhaseError(f"{name}: launched {ran}, expected {kernel} once")
+        (tiling,) = [key[6:] for key in launches.shapes]
+        if kernel == "splash_fwd":
+            def plain_fn():
+                return splash_mha_reference(qs, k, v, block_kv=tiling[1])
+        else:
+            def plain_fn():
+                return flash_fwd_variant_reference(q, k, v, scale, block_k=tiling[1])
+        plain = plain_fn().float()
+        err = (out.float() - plain).abs()
+        max_err, mean_err, plain_std = float(err.max()), float(err.mean()), float(plain.std())
+        plain_max = float(plain.abs().max())
+        exact_err = float((out.float() - exact).abs().max())
+        finite = bool(torch.isfinite(out).all())
+        del out, plain, err
+        ok, tol = within_variant_bar(max_err, mean_err, plain_std, plain_max)
+        ms = cuda_time_ms(torch, fn)
+        plain_ms = cuda_time_ms(torch, plain_fn, max_iters=3)
+        row = dict(name=name, kernel=kernel, tiling=list(tiling), B=b, H=h, L=l, D=d, ms=ms,
+                   k1_ms=k1_ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound,
+                   bound_by=bound_by, max_abs_err=max_err, mean_abs_err=mean_err,
+                   mean_over_std=mean_err / plain_std, tolerance=tol,
+                   exact_max_abs_err=exact_err, k1_exact_max_abs_err=k1_exact_err)
+        rows.append(row)
+        log(f"[attn_variants] {name} ({kernel}, tiling {tiling}): max|d|={max_err:.3e} "
+            f"mean|d|={mean_err:.3e} ({mean_err / plain_std:.2e} std) vs plain ({tol}); "
+            f"max|d|={exact_err:.3e} vs exact (K1 "
+            f"{k1_exact_err:.3e}); kernel {ms:.3f} ms, K1 {k1_ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, sdpa {sdpa_ms:.3f} ms, bound {bound:.3f} ms ({bound_by})")
+        if not (ok and finite):
+            raise PhaseError(f"{name} disagrees with its plain version: max {max_err:.3e}, "
+                             f"mean {mean_err:.3e}, finite {finite} ({tol})")
+        torch.cuda.empty_cache()
+
+    controls = {}
+    for name, out_fn, plain_fn in (
+            ("t1_kernel_vs_t2_plain", lambda: flash_fwd_variant(qs, k, v, 1.0),
+             lambda: splash_mha_reference(qs, k, v)),
+            ("t2_kernel_vs_t1_plain", lambda: splash_mha_fwd(qs, k, v),
+             lambda: flash_fwd_variant_reference(qs, k, v, 1.0))):
+        out, plain = out_fn().float(), plain_fn().float()
+        err = (out - plain).abs()
+        max_err, mean_err, plain_std = float(err.max()), float(err.mean()), float(plain.std())
+        fails, tol = within_variant_bar(max_err, mean_err, plain_std, float(plain.abs().max()))
+        del out, plain, err
+        controls[name] = dict(max_abs_err=max_err, mean_abs_err=mean_err,
+                              mean_over_std=mean_err / plain_std, passes_bar=fails, tolerance=tol)
+        log(f"[attn_variants] control {name} on the pre-scaled q: max|d|={max_err:.3e} "
+            f"mean|d|={mean_err:.3e} ({mean_err / plain_std:.2e} std), must fail ({tol})")
+        if fails:
+            raise PhaseError(f"control {name} passes the variants' bar: it cannot tell p rounded "
+                             f"to bf16 from p kept in fp32")
+        torch.cuda.empty_cache()
+    del q, k, v, qs, packed, exact
+
+    launches.reset()
+    t0 = time.perf_counter()
+    bench_rows = bench.main([])
+    bench_s = time.perf_counter() - t0
+    counts = {key: n for key, n in launches.counts.items() if n}
+    by_tiling = {(key[0],) + key[6:]: n for key, n in launches.shapes.items()
+                 if key[0] in VARIANT_KERNELS.values()}
+    log(f"[attn_variants] bench_attn_variants.main() on the card: {bench_s:.1f} s, launches "
+        f"{counts}, by tiling {by_tiling}")
+    missing = sorted({(r["kernel"],) + tuple(r["tiling"]) for r in rows} - set(by_tiling))
+    if missing or any(counts.get(p) for p in VARIANT_PLAIN) or not counts.get("flash_fwd"):
+        raise PhaseError(f"the bench did not launch every row's kernel ({missing} missing) or "
+                         f"ran a plain version: {counts}")
+    return dict(rows=rows, controls=controls, k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=bound,
+                k1_exact_max_abs_err=k1_exact_err, bench_rows=bench_rows, bench_s=bench_s,
+                bench_launches=counts,
+                bench_launches_by_tiling=[[*key, n] for key, n in sorted(by_tiling.items())])
+
+
 def _flash_eligible(lq: int, lk: int) -> bool:
     return lq % 128 == 0 and lk % 128 == 0 and lk >= 512
 
@@ -488,11 +642,11 @@ def card_and_cpu_pipelines(torch, seed: int):
     return card, cpu
 
 
-def parity_phase(torch) -> dict:
-    """A reduced-depth fp32 pipeline on the card against the same run on the
-    CPU: same seeded weights, inputs and initial noise."""
+def parity_setup(torch):
+    """The reduced models on the card and on the CPU with the same seeded
+    weights, and the keyword arguments of one call on both: fp32 256x256, 12
+    frames in 8-frame windows, CFG 2.0, 2 steps, the same inputs and noise."""
     import numpy as np
-    from vexpress_torch.ops import launches
 
     H = W = 256
     L, ctx, ovl, steps = 12, 8, 4, 2
@@ -502,6 +656,16 @@ def parity_phase(torch) -> dict:
     kw = dict(reference_image=ref, kps_images=kps, audio_waveform=wave, width=W, height=H,
               video_length=L, num_inference_steps=steps, guidance_scale=2.0,
               context_frames=ctx, context_overlap=ovl, latents=noise)
+    return card, cpu, kw
+
+
+def parity_phase(torch) -> dict:
+    """A reduced-depth fp32 pipeline on the card against the same run on the
+    CPU: same seeded weights, inputs and initial noise."""
+    import numpy as np
+    from vexpress_torch.ops import launches
+
+    card, cpu, kw = parity_setup(torch)
     launches.reset()
     t0 = time.perf_counter()
     on_card = card(**kw)
@@ -570,6 +734,50 @@ def cli_parity_run(torch, card, cpu, kw) -> dict:
         raise PhaseError("save_memory released nothing on the card")
     return dict(psnr_db=psnr, yuv_max_abs_diff=yuv_diff, released_mib=released,
                 launches=card_launches)
+
+
+def trace_phase(torch) -> dict:
+    """The CLI's generate with --profile_dir on the parity phase's card
+    pipeline and inputs, in the CLI's configuration (DPM-Solver++ 2 steps,
+    save_memory, K2's fp32 kernel): exactly one trace file, holding CUDA
+    kernel events and among them the port's flash kernel by name. It runs
+    last, after every timed phase, so that no profiler session precedes
+    them in this process."""
+    from vexpress_torch.cli import infer
+    from vexpress_torch.ops import flash
+
+    card, _, kw = parity_setup(torch)
+    inputs = dict(reference_image=kw["reference_image"], kps_images=kw["kps_images"],
+                  audio=kw["audio_waveform"], video_length=kw["video_length"])
+    with tempfile.TemporaryDirectory() as trace_dir:
+        args = infer.parse_args([
+            "--reference_image_path", "synthetic", "--audio_path", "synthetic",
+            "--image_width", str(kw["width"]), "--image_height", str(kw["height"]),
+            "--sampler", "dpmpp_2m", "--num_inference_steps", "2",
+            "--guidance_scale", str(kw["guidance_scale"]),
+            "--context_frames", str(kw["context_frames"]),
+            "--context_overlap", str(kw["context_overlap"]), "--save_gpu_memory",
+            "--profile_dir", trace_dir])
+        flash.FLASH_LITE = True
+        try:
+            t0 = time.perf_counter()
+            infer.generate(card, inputs, args, output_yuv420=True)
+            run_s = time.perf_counter() - t0
+        finally:
+            flash.FLASH_LITE = False
+        traces = sorted(pathlib.Path(trace_dir).glob("*.pt.trace.json"))
+        trace_mib = sum(t.stat().st_size for t in traces) / 2**20
+        events = json.loads(traces[0].read_text())["traceEvents"] if traces else []
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    flash_names = sorted({n for n in kernels if "flash_fwd" in n})
+    log(f"[trace] CLI generate with --profile_dir: {run_s:.1f} s, {len(traces)} trace file(s) "
+        f"of {trace_mib:.1f} MiB, {len(events)} events, {len(kernels)} CUDA kernel events, "
+        f"flash kernels {flash_names}")
+    if len(traces) != 1 or not flash_names:
+        raise PhaseError(f"--profile_dir wrote {len(traces)} trace files; kernel events "
+                         f"{len(kernels)}, flash kernels among them {flash_names}")
+    return dict(run_s=run_s, trace_mib=trace_mib, events=len(events), kernel_events=len(kernels),
+                flash_kernels=flash_names)
 
 
 FULL_SIZE, FULL_FRAMES, FULL_CONTEXT, FULL_OVERLAP = 512, 44, 24, 4
@@ -1125,15 +1333,16 @@ def kernels_line(results: dict) -> list:
                              flash_bwd_dkv=train_bwd.get(("flash_bwd_dkv",) + key, 0),
                              flash_bwd_dq=train_bwd.get(("flash_bwd_dq",) + key, 0))
 
-    def entry(name, source, replaces, parts, launches, **extra):
+    def entry(name, source, replaces, parts, launches,
+              times_are="sums over the main-path shapes at which it ran, one call each",
+              **extra):
         """parts: (ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err) per shape."""
         by = {k: sum(p[3] for p in parts if p[4] == k) for k in ("operations", "bytes")}
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                     max_abs_err=max(p[5] for p in parts), ms=sum(p[0] for p in parts),
                     plain_ms=sum(p[1] for p in parts), library_ms=sum(p[2] for p in parts),
                     bound_ms=sum(p[3] for p in parts), bound_by=max(by, key=by.get),
-                    times_are="sums over the main-path shapes at which it ran, one call each",
-                    **extra)
+                    times_are=times_are, **extra)
 
     main_grad = [r for r in grad_rows if r["main_path"]]
     fwd_parts = ([(r["kernel_ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
@@ -1174,6 +1383,24 @@ def kernels_line(results: dict) -> list:
         plain_is="flash_lite_reference", k1_ms=sum(r["k1_ms"] for r in ran),
         exps=sum(r["exps"] for r in ran), launches_by_path=dict(cli_full=results["cli_full"][
             "lite_launches"]), shapes=lite_rows))
+    av = results["attn_variants"]
+    for name, source, replaces, plain_is in (
+            ("flash_fwd_variant", "vexpress_torch/csrc/flash_variants.cu",
+             "tools/bench_attn_variants.py:77 flash_at and :156 flash_bb, which reach the "
+             "library's jax/experimental/pallas/ops/tpu/flash_attention.py:758 (pallas_call)",
+             "flash_fwd_variant_reference"),
+            ("splash_fwd", "vexpress_torch/csrc/splash_fwd.cu",
+             "tools/bench_attn_variants.py:106 splash_at, which reaches the library's "
+             "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py:1137 "
+             "(pallas_call; body flash_attention_kernel :696)", "splash_mha_reference")):
+        rows = [r for r in av["rows"] if r["kernel"] == name]
+        kernels.append(entry(
+            name, source, replaces,
+            [(r["ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
+              r["max_abs_err"]) for r in rows], av["bench_launches"][name],
+            times_are="sums over the bench's rows (tilings) at its shape, one call each",
+            plain_is=plain_is, k1_ms=sum(r["k1_ms"] for r in rows),
+            launches_by_path=dict(bench_attn_variants=av["bench_launches"][name]), rows=rows))
     return kernels
 
 
@@ -1201,19 +1428,24 @@ def main() -> int:
     flash.FLASH_LITE = False  # K1 unless a phase turns K2 on
     results = {}
     wall = {}
+    # the timed full-width phases run before attn_variants (GiB-scale plain
+    # versions) and trace (a profiler session), so that neither is in their way
     for name, run in (("kernel", lambda: kernel_phase(torch)),
                       ("parity", lambda: parity_phase(torch)),
                       ("train_parity", lambda: train_parity_phase(torch)),
                       ("full", lambda: full_phase(torch, FULL_STEPS)),
                       ("train_full", lambda: train_full_phase(torch)),
-                      ("cli_full", lambda: cli_full_phase(torch))):
+                      ("cli_full", lambda: cli_full_phase(torch)),
+                      ("attn_variants", lambda: attn_variants_phase(torch)),
+                      ("trace", lambda: trace_phase(torch))):
         gc.collect()  # what an earlier phase left must not count in this one's memory
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         results[name] = run()
         wall[name] = time.perf_counter() - t0
         log(f"[{name}] phase wall time {wall[name]:.1f} s")
-    print(json.dumps({"phases": {k: v for k, v in results.items() if k != "kernel"},
+    print(json.dumps({"phases": {k: v for k, v in results.items()
+                                 if k not in ("kernel", "attn_variants")},
                       "phase_wall_s": wall, "card": card}))
 
     kernels = kernels_line(results)

@@ -3,9 +3,12 @@ on the CPU: released-format torch checkpoints of tiny JAX modules load into
 both packages' pipelines to equal tensors; strict key checking, the lineage
 remap, stage_1 zeroing and the HF wav2vec2 converter agree; keypoint
 rendering, retargeting and interpolation and the image loader give equal
-output; and `python -m vexpress_torch.cli.infer --device cpu` writes a video.
+output; a Wav2Vec2ForCTC audio checkpoint loads without its CTC head; and
+`python -m vexpress_torch.cli.infer --device cpu` writes a video, and with
+--profile_dir a trace.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -32,6 +35,7 @@ from vexpress_tpu.utils.misc import zero_params_matching as j_zero  # noqa: E402
 from vexpress_torch.io import loaders as t_loaders  # noqa: E402
 from vexpress_torch.io import torch_import as t_import  # noqa: E402
 from vexpress_torch.io.torch_export import wav2vec2_torch_key  # noqa: E402
+from vexpress_torch.models.wav2vec2 import Wav2Vec2Model  # noqa: E402
 from vexpress_torch.models.wav2vec2 import convert_wav2vec2_state_dict as t_convert_w2v  # noqa: E402
 from vexpress_torch.pipelines import kps as t_kps  # noqa: E402
 from vexpress_torch.pipelines import media as t_media  # noqa: E402
@@ -197,7 +201,42 @@ def test_kps_and_image_helpers_match_jax(tmp_path):
                                   j_media.load_image_rgb(path, 64, 96))
 
 
-def test_cli_generates_video(tmp_path):
+def test_ctc_wav2vec2_checkpoint_loads(tmp_path):
+    """The CLI's default audio encoder, wav2vec2-base-960h, is a
+    Wav2Vec2ForCTC checkpoint: its `wav2vec2.*` tensors load and its CTC head
+    (`lm_head.*`) is dropped, as the reference's Wav2Vec2Model.from_pretrained
+    drops it. Another unknown key in that checkpoint, or `lm_head.*` in the
+    UNet's, still raises."""
+    tm = t_loaders.apply_model_overrides(t_loaders.default_pipeline_models(torch.float32),
+                                         TINY_OVERRIDES)
+    src = t_loaders.init_random_(Wav2Vec2Model(tm.wav2vec2_config), seed=3).state_dict()
+    hidden = tm.wav2vec2_config.hidden_size
+    ctc = {f"wav2vec2.{k}": v for k, v in src.items()}
+    ctc.update({"lm_head.weight": torch.randn(32, hidden), "lm_head.bias": torch.randn(32)})
+
+    def saved(name, sd):
+        (tmp_path / name).mkdir()
+        torch.save(sd, tmp_path / name / "pytorch_model.bin")
+        return str(tmp_path / name)
+
+    pipe = t_loaders.load_pipeline(models=tm, device="cpu",
+                                   audio_encoder_path=saved("ctc", ctc))
+    got = pipe.components()["wav2vec2"].state_dict()
+    assert set(got) == set(src)
+    for k, v in src.items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
+    with pytest.raises(ValueError, match="wav2vec2.*encoder.bogus"):
+        t_loaders.load_pipeline(models=tm, device="cpu", audio_encoder_path=saved(
+            "bogus", dict(ctc, **{"wav2vec2.encoder.bogus": torch.zeros(2)})))
+    unet = str(tmp_path / "unet.bin")
+    torch.save({"conv_in.bias": torch.zeros(tm.unet_config.block_out_channels[0]),
+                "lm_head.weight": torch.zeros(32, hidden)}, unet)
+    with pytest.raises(ValueError, match="denoising_unet.*lm_head.weight"):
+        t_loaders.load_pipeline(models=tm, device="cpu", denoising_unet_path=unet)
+
+
+def _cli_argv(tmp_path):
+    """A tiny `--device cpu` CLI run's flags and the subprocess environment."""
     rng = np.random.default_rng(0)
     ref_path, aud_path = str(tmp_path / "ref.png"), str(tmp_path / "aud.wav")
     cv2.imwrite(ref_path, rng.integers(0, 255, size=(64, 64, 3), dtype=np.uint8))
@@ -207,17 +246,36 @@ def test_cli_generates_video(tmp_path):
     ov_path = str(tmp_path / "tiny_models.yaml")
     with open(ov_path, "w") as f:
         yaml.safe_dump(TINY_OVERRIDES, f)
-    out_path = str(tmp_path / "out" / "result.mp4")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run(
-        [sys.executable, "-m", "vexpress_torch.cli.infer", "--device", "cpu", "--dtype", "fp32",
-         "--model_overrides_path", ov_path, "--reference_image_path", ref_path,
-         "--audio_path", aud_path, "--kps_path", kps_path, "--retarget_strategy", "no_retarget",
-         "--image_width", "64", "--image_height", "64", "--fps", "8", "--seed", "0",
-         "--sampler", "dpmpp_2m", "--num_inference_steps", "2", "--save_gpu_memory",
-         "--context_frames", "4", "--context_overlap", "1",
-         "--vae_path", str(tmp_path / "missing"), "--output_path", out_path],
-        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    argv = [sys.executable, "-m", "vexpress_torch.cli.infer", "--device", "cpu", "--dtype", "fp32",
+            "--model_overrides_path", ov_path, "--reference_image_path", ref_path,
+            "--audio_path", aud_path, "--kps_path", kps_path, "--retarget_strategy", "no_retarget",
+            "--image_width", "64", "--image_height", "64", "--fps", "8", "--seed", "0",
+            "--sampler", "dpmpp_2m", "--num_inference_steps", "2", "--save_gpu_memory",
+            "--context_frames", "4", "--context_overlap", "1",
+            "--vae_path", str(tmp_path / "missing")]
+    return argv, env
+
+
+def test_cli_profile_dir_writes_trace(tmp_path):
+    argv, env = _cli_argv(tmp_path)
+    trace_dir = tmp_path / "trace"
+    proc = subprocess.run(argv + ["--profile_dir", str(trace_dir), "--output_path",
+                                  str(tmp_path / "out.mp4")],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, f"STDOUT:\n{proc.stdout[-3000:]}\nSTDERR:\n{proc.stderr[-3000:]}"
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1 and f"device trace written to {traces[0]}" in proc.stdout
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+
+
+def test_cli_generates_video(tmp_path):
+    argv, env = _cli_argv(tmp_path)
+    out_path = str(tmp_path / "out" / "result.mp4")
+    proc = subprocess.run(argv + ["--output_path", out_path], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, f"STDOUT:\n{proc.stdout[-3000:]}\nSTDERR:\n{proc.stderr[-3000:]}"
     assert "denoise step 2/2" in proc.stdout and "not found — using random init" in proc.stdout
     # 1.0 s of audio at 8 fps, trimmed to whole 4-frame windows of overlap 1
@@ -229,11 +287,13 @@ def test_cli_generates_video(tmp_path):
     assert shape == (7, 64, 64)
 
 
-@pytest.mark.parametrize("flag,value", [("--lora_path", "x.safetensors"), ("--profile_dir", "p"),
+@pytest.mark.parametrize("flag,value", [("--lora_path", "x.safetensors"),
+                                        ("--do_multi_devices_inference", None),
                                         ("--mode", "sharded"), ("--mode", "fused")])
 def test_cli_unported_options_raise(flag, value):
     from vexpress_torch.cli import infer
 
-    args = infer.parse_args(["--reference_image_path", "r", "--audio_path", "a", flag, value])
+    args = infer.parse_args(["--reference_image_path", "r", "--audio_path", "a", flag]
+                            + ([value] if value else []))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         infer.build_pipeline(args)

@@ -43,7 +43,10 @@ want = {"vexpress_torch.train", "vexpress_torch.train.config", "vexpress_torch.t
         "vexpress_torch.train.train_step", "vexpress_torch.cli", "vexpress_torch.cli.infer",
         "vexpress_torch.io.torch_import", "vexpress_torch.io.inference_config",
         "vexpress_torch.ops.flash_lite", "vexpress_torch.diffusion.dpm_solver",
-        "vexpress_torch.pipelines.kps", "vexpress_torch.utils.media_native"}
+        "vexpress_torch.pipelines.kps", "vexpress_torch.utils.media_native",
+        "vexpress_torch.ops.flash_variants", "vexpress_torch.ops.splash",
+        "vexpress_torch.utils.observability", "vexpress_torch.tools.bench_attn_variants",
+        "vexpress_torch.tools.bench_motion_variants", "vexpress_torch.tools.ptxas_report"}
 assert want <= set(names), sorted(want - set(names))
 print("OK", len(names))
 """

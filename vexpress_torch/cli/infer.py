@@ -81,8 +81,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mode", type=str, default="",
                    help="denoise mode; only 'streamed' (the default) is ported")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="device trace of the denoise loop (not ported yet: ROADMAP Queue 1 "
-                        "item 12)")
+                   help="write a torch.profiler trace of the pipeline call (host operations "
+                        "and CUDA kernels) into this directory, as a Chrome trace file for "
+                        "Perfetto or chrome://tracing")
     p.add_argument("--no_median_filter", action="store_true")
     p.add_argument("--audio_embeddings_type", type=str, default="global",
                    help="{global} (the reference's only mode, inference.py:59,164-169)")
@@ -116,9 +117,6 @@ def _check_ported(args) -> None:
     if args.mode not in ("", "streamed"):
         raise NotImplementedError(f"--mode {args.mode}: only 'streamed' is ported (the fused "
                                   "mode is on ROADMAP's Not-to-port list)")
-    if args.profile_dir:
-        raise NotImplementedError("--profile_dir: the device trace is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
     if args.audio_embeddings_type != "global":
         raise ValueError(f"audio_embeddings_type={args.audio_embeddings_type!r} is not "
                          "supported; only 'global' (reference inference.py:164-169)")
@@ -245,23 +243,29 @@ def prepare_inputs(args) -> Dict[str, Any]:
 def generate(pipeline, inputs: Dict[str, Any], args, output_yuv420: bool):
     """The pipeline call with the CLI's keywords: the (Y, U, V) planes when
     `output_yuv420`, else uint8 RGB frames; median-filtered unless
-    --no_median_filter."""
+    --no_median_filter. With --profile_dir, the call runs under
+    `device_trace`."""
+    from ..utils.observability import device_trace
 
     def progress(i, t):
         print(f"[vexpress] denoise step {i + 1}/{args.num_inference_steps} (t={t})", flush=True)
 
-    return pipeline(
-        reference_image=inputs["reference_image"], kps_images=inputs["kps_images"],
-        audio_waveform=inputs["audio"], width=args.image_width, height=args.image_height,
-        video_length=inputs["video_length"], num_inference_steps=args.num_inference_steps,
-        sampler=args.sampler or "ddim", guidance_scale=args.guidance_scale,
-        context_frames=args.context_frames, context_overlap=args.context_overlap,
-        reference_attention_weight=args.reference_attention_weight,
-        audio_attention_weight=args.audio_attention_weight,
-        num_pad_audio_frames=args.num_pad_audio_frames, seed=args.seed,
-        window_group=args.window_group, save_memory=args.save_gpu_memory,
-        median_filter=not args.no_median_filter, output_yuv420=output_yuv420,
-        output_uint8=not output_yuv420, progress_callback=progress)
+    with device_trace(args.profile_dir) as trace_path:
+        video = pipeline(
+            reference_image=inputs["reference_image"], kps_images=inputs["kps_images"],
+            audio_waveform=inputs["audio"], width=args.image_width, height=args.image_height,
+            video_length=inputs["video_length"], num_inference_steps=args.num_inference_steps,
+            sampler=args.sampler or "ddim", guidance_scale=args.guidance_scale,
+            context_frames=args.context_frames, context_overlap=args.context_overlap,
+            reference_attention_weight=args.reference_attention_weight,
+            audio_attention_weight=args.audio_attention_weight,
+            num_pad_audio_frames=args.num_pad_audio_frames, seed=args.seed,
+            window_group=args.window_group, save_memory=args.save_gpu_memory,
+            median_filter=not args.no_median_filter, output_yuv420=output_yuv420,
+            output_uint8=not output_yuv420, progress_callback=progress)
+    if trace_path:
+        print(f"[vexpress] device trace written to {trace_path}")
+    return video
 
 
 def main(argv=None) -> None:

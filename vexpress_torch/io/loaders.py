@@ -28,8 +28,8 @@ from ..models.vae import VAEConfig
 from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, convert_wav2vec2_state_dict
 from ..pipelines.pipeline import PipelineModels, VExpressPipeline
 from .torch_export import export_to_torch_state_dict, wav2vec2_torch_key
-from .torch_import import (is_ignorable_unconsumed, load_native_state_dict,
-                           load_torch_checkpoint, remap_lineage)
+from .torch_import import (is_ignorable_audio_unconsumed, is_ignorable_unconsumed,
+                           load_native_state_dict, load_torch_checkpoint, remap_lineage)
 
 AUDIO_PROJECTION_KWARGS = dict(  # the reference's inference.py:116-126
     dim=768, depth=4, dim_head=64, heads=12, num_queries=5,
@@ -103,7 +103,8 @@ def load_pipeline(
     that exists loaded over them by its native keys. A path that does not
     exist leaves its module random and says so. Checkpoint tensors that find
     no place raise (the reference's strict=False load, inference.py:79,
-    would drop a misspelled key silently). Keeps host copies of the modules
+    would drop a misspelled key silently), but the audio encoder's CTC head
+    (`lm_head.*`), which is dropped. Keeps host copies of the modules
     save_memory releases. The JAX loader's `base_model_path` (the SD prior
     of training) is not ported yet."""
     models = models or default_pipeline_models()
@@ -115,9 +116,9 @@ def load_pipeline(
     def log(msg):
         print(f"[vexpress] {msg}")
 
-    def load_into(name, sd):
+    def load_into(name, sd, ignorable=is_ignorable_unconsumed):
         n, unconsumed = load_native_state_dict(comps[name], sd)
-        unconsumed = [k for k in unconsumed if not is_ignorable_unconsumed(k)]
+        unconsumed = [k for k in unconsumed if not ignorable(k)]
         if unconsumed:
             raise ValueError(f"{len(unconsumed)} checkpoint tensors had no destination in "
                              f"{name} (first: {unconsumed[:8]})")
@@ -139,7 +140,7 @@ def load_pipeline(
     f = resolve(audio_encoder_path)
     if f:
         sd = {k.removeprefix("wav2vec2."): v for k, v in load_torch_checkpoint(f).items()}
-        load_into("wav2vec2", convert_wav2vec2_state_dict(sd))
+        load_into("wav2vec2", convert_wav2vec2_state_dict(sd), is_ignorable_audio_unconsumed)
     f = resolve(reference_net_path)
     if f:
         load_into("reference_net", load_torch_checkpoint(f))

@@ -34,6 +34,14 @@ def is_ignorable_unconsumed(key: str) -> bool:
     return parts[-1] in _IGNORABLE_LEAF_NAMES or any(s in parts for s in _IGNORABLE_SEGMENTS)
 
 
+def is_ignorable_audio_unconsumed(key: str) -> bool:
+    """`is_ignorable_unconsumed` for the audio encoder's checkpoint, which may
+    also carry a CTC head (`lm_head.*`: the CLI's default wav2vec2-base-960h
+    is a Wav2Vec2ForCTC checkpoint). The encoder ends before that head, as
+    the reference's Wav2Vec2Model.from_pretrained drops it."""
+    return key.startswith("lm_head.") or is_ignorable_unconsumed(key)
+
+
 @torch.no_grad()
 def load_native_state_dict(module: torch.nn.Module,
                            state_dict: Mapping[str, torch.Tensor]) -> Tuple[int, List[str]]:

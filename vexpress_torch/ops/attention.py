@@ -106,6 +106,25 @@ def sdpa(
     return torch.cat(outs, dim=1).reshape(b, lq, inner)
 
 
+def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, frames: int,
+                       heads: int) -> torch.Tensor:
+    """Self-attention across frames without the (b f) d c -> (b d) f c
+    rearrange: q, k, v stay (b*f, d, heads*e) and the frame axis rides in
+    the per-head einsums; fp32 softmax, output in v's dtype."""
+    bf, d_tok, inner = q.shape
+    b, e = bf // frames, inner // heads
+    outs = []
+    for i in range(heads):
+        sl = slice(i * e, (i + 1) * e)
+        qh = q[:, :, sl].reshape(b, frames, d_tok, e)
+        kh = k[:, :, sl].reshape(b, frames, d_tok, e)
+        vh = v[:, :, sl].reshape(b, frames, d_tok, e)
+        logits = torch.einsum("bqde,bkde->bdqk", qh.float(), kh.float())
+        w = torch.softmax(logits * e**-0.5, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bdqk,bkde->bqde", w, vh))
+    return torch.stack(outs, dim=3).reshape(bf, d_tok, inner)
+
+
 class Attention(nn.Module):
     """Multi-head attention mirroring diffusers `Attention`: to_q/to_k/to_v
     (no bias), to_out.0 (bias)."""
@@ -123,22 +142,8 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias)])
 
     def _temporal(self, x: torch.Tensor, frames: int) -> torch.Tensor:
-        """Self-attention across frames without the (b f) d c -> (b d) f c
-        rearrange: x stays (b*f, d, c) and the frame axis rides in the
-        per-head einsums."""
-        bf, d_tok, _ = x.shape
-        b, e = bf // frames, self.dim_head
-        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
-        outs = []
-        for i in range(self.heads):
-            sl = slice(i * e, (i + 1) * e)
-            qh = q[:, :, sl].reshape(b, frames, d_tok, e)
-            kh = k[:, :, sl].reshape(b, frames, d_tok, e)
-            vh = v[:, :, sl].reshape(b, frames, d_tok, e)
-            logits = torch.einsum("bqde,bkde->bdqk", qh.float(), kh.float())
-            w = torch.softmax(logits * e**-0.5, dim=-1).to(v.dtype)
-            outs.append(torch.einsum("bdqk,bkde->bqde", w, vh))
-        o = torch.stack(outs, dim=3).reshape(bf, d_tok, self.heads * e)
+        """Self-attention across frames of x (b*f, d, c) (`temporal_attention`)."""
+        o = temporal_attention(self.to_q(x), self.to_k(x), self.to_v(x), frames, self.heads)
         return self.to_out[0](o)
 
     def _attend(self, hs: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:

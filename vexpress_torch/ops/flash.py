@@ -5,7 +5,10 @@ library's Pallas TPU flash-attention kernel (and, under a gradient, its two
 backward kernels). Here the kernels are `csrc/flash_fwd.cu` (forward, with an
 optional log-sum-exp output) and `csrc/flash_bwd.cu` (dk/dv and dq), CUDA C++
 for sm_90a, built by nvcc into one plain-C shared library under
-`vexpress_torch/_build/` at first use and called through ctypes.
+`vexpress_torch/_build/` at first use and called through ctypes. The same
+library holds the attention-variant bench's kernels T1 and T2
+(`ops/flash_variants.py`, `ops/splash.py`), which share K1's forward
+template, `csrc/flash_fwd_mma.cuh`.
 
 `flash_sdpa` sends CUDA tensors to the kernels and CPU tensors to
 `flash_sdpa_reference`, the same function in plain torch, which autograd
@@ -44,6 +47,7 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_DIMS = (40, 80, 160)
 _ROWS = 64  # rows per block; Lq and Lk must be multiples of it
 _LOGIT_BUDGET = 1 << 26  # fp32 (B, H, chunk, Lk) elements per chunk of the plain backward
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 
 # K2 in place of K1 where its shapes allow (see the module docstring); tests
 # and chip_smoke.py set the attribute
@@ -57,7 +61,7 @@ def flash_supported(lq: int, lk: int) -> bool:
     return lq % 128 == 0 and lk % 128 == 0 and lq >= 128 and lk >= 128
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -80,8 +84,8 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+    nvcc = nvcc_path()
+    arch = list(NVCC_FLAGS)
     with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
         objs = [pathlib.Path(tmp) / (src.stem + ".o") for src in sources]
         procs = [subprocess.Popen([nvcc, *arch, "-Xcompiler", "-fPIC", "-c", "-o", str(obj),
@@ -120,6 +124,10 @@ def _library():
             lib.vx_flash_bwd_dkv.restype = i
             lib.vx_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
             lib.vx_flash_bwd_dq.restype = i
+            lib.vx_flash_fwd_variant.argtypes = [p, p, p, p, i, i, i, i, i, p, f, i, i, i, i, p]
+            lib.vx_flash_fwd_variant.restype = i
+            lib.vx_splash_mha_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p, i, i, i, p]
+            lib.vx_splash_mha_fwd.restype = i
             lib.vx_error_string.argtypes = [i]
             lib.vx_error_string.restype = ctypes.c_char_p
             _lib = lib

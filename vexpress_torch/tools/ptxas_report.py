@@ -1,0 +1,79 @@
+"""Registers, shared memory and spills of every kernel in vexpress_torch/csrc,
+as ptxas reports them for sm_90a with the flags of the library build
+(ops/flash.py: NVCC_FLAGS), one nvcc per source, all at once. Needs nvcc.
+
+    python -m vexpress_torch.tools.ptxas_report
+
+Prints one line per kernel: source, registers, shared memory bytes, spill
+stores and loads, and the demangled name.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, List
+
+from ..ops import flash
+
+
+def _demangle(names: List[str], nvcc: str) -> Dict[str, str]:
+    tool = pathlib.Path(nvcc).with_name("cu++filt")
+    tool = str(tool) if tool.exists() else shutil.which("c++filt")
+    if not tool or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    return dict(zip(names, out))
+
+
+def parse(source: str, log: str) -> List[dict]:
+    """Kernels of one ptxas -v log: name, registers, smem, spill bytes."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(source=source, mangled=m.group(1), registers=None, smem=0,
+                       spill_stores=0, spill_loads=0)
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return rows
+
+
+def main(argv=None) -> List[dict]:
+    nvcc = flash.nvcc_path()
+    sources = sorted(flash._CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([nvcc, *flash.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                                   str(pathlib.Path(tmp) / (src.stem + ".o")), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src in sources]
+        rows = []
+        for src, proc in zip(sources, procs):
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc {src.name} failed ({proc.returncode}):\n{log}")
+            rows += parse(src.name, log)
+    names = _demangle([r["mangled"] for r in rows], nvcc)
+    for r in rows:
+        r["name"] = names[r["mangled"]]
+        print(f"{r['source']:<20} {r['registers']:>4} regs {r['smem']:>6} B smem "
+              f"spill {r['spill_stores']}/{r['spill_loads']} B  {r['name']}", flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()
