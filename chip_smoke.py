@@ -6,6 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
   card          the card's name and power limit (nvidia-smi)
   build         nvcc builds every kernel from the sources in the checkout
+  sass          the bf16 forward kernels' SASS holds HGMMA (wgmma) and
+                UTMALDG (TMA loads)
   kernel        each kernel at the main paths' shapes against its plain
                 version: K1's forward and K2 (VEXPRESS_FLASH_LITE's bf16-exp
                 forward, also against exact fp32 attention) at the inference
@@ -13,7 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                 with log-sum-exp, dk/dv and dq kernels) through
                 FlashAttention; times of each kernel, its plain version, one
                 PyTorch library call (a yardstick only), K1 beside K2 on the
-                same inputs, and the card's bound
+                same inputs, K1 at its other shared-memory layout, K1's
+                mma.sync design (T1's kernel at K1's old tiling) on the same
+                inputs at D=40, the card's bound and the exp floor (exps over
+                the SFUs' rate at the SM clock read beside the window)
   parity        a reduced-depth fp32 pipeline run on the card against the same
                 run on the CPU (decoded-video PSNR); then the CLI's
                 configuration on the same models: DPM-Solver++, save_memory,
@@ -64,6 +69,7 @@ import tempfile
 import time
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
+N_SMS, EX2_PER_CLK = 132, 16  # H100 SXM: SMs, ex2 results a clock on one SM (MUFU)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 FULL_STEPS = 25  # the reference's DDIM step count; the full phase takes ~20 s on an H100
@@ -136,6 +142,58 @@ def cuda_time_ms(torch, fn, min_total_ms: float = 200.0, max_iters: int = 50) ->
     return start.elapsed_time(end) / iters
 
 
+def sm_clock_mhz() -> float:
+    """The SM clock now (nvidia-smi), read right after a timed window."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.split()[0])
+
+
+def exp_floor_ms(exps: float, clock_mhz: float) -> float:
+    """The least time of `exps` exps on the SFUs: N_SMS x EX2_PER_CLK a clock."""
+    return 1e3 * exps / (N_SMS * EX2_PER_CLK * clock_mhz * 1e6)
+
+
+def mma_sync_design(torch, q, k, v, heads):
+    """K1's mma.sync design before its redesign for Hopper, on K1's packed
+    inputs: T1's kernel (csrc/flash_variants.cu) at K1's old tiling (64 query
+    rows, 64 keys, D padded to 48, one (batch, head) a block), called on the
+    head-major views of q, k, v and its output. D=40 only. Returns a function
+    that launches it and returns the output; no launch is counted."""
+    from vexpress_torch.ops import flash
+    from vexpress_torch.ops.flash_variants import strides_arg
+
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    out = torch.empty_like(q)
+    strides = strides_arg(*(t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2)
+                            for t in (q, k, v, out)))
+    lib = flash._library()
+
+    def run():
+        rc = lib.vx_flash_fwd_variant(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                                      heads, lq, lk, d, strides, float(d**-0.5), 64, 64, 48, 1,
+                                      flash._stream(q))
+        flash._raise_on(rc, "mma.sync design")
+        return out
+    return run
+
+
+def sass_phase() -> dict:
+    """The built library's bf16 forward kernels (flash_fwd_wgmma) hold HGMMA
+    and UTMALDG in their SASS, and their exps are on MUFU.EX2."""
+    from vexpress_torch.ops import flash
+    from vexpress_torch.tools.ptxas_report import sass_ops
+
+    ops = sass_ops(flash.build(), "flash_fwd_wgmma")
+    ok = bool(ops) and all({"HGMMA", "UTMALDG", "MUFU.EX2"} <= set(o) for o in ops.values())
+    log(f"[sass] {len(ops)} bf16 forward kernels (flash_fwd_wgmma), HGMMA and UTMALDG in each: "
+        f"{ok}; " + "; ".join(f"{n}: {' '.join(o)}" for n, o in sorted(ops.items())))
+    if not ok:
+        raise PhaseError(f"the bf16 forward kernels lack wgmma or TMA in their SASS: {ops}")
+    return dict(kernels=ops)
+
+
 def bound_ms(ops: float, nbytes: float, peak: float):
     """The card's least time for `ops` operations at `peak` and `nbytes` at the
     HBM rate: (ms, what bounds it)."""
@@ -198,7 +256,8 @@ def within_k1_grad_bar(bf16: bool, max_err: float, mean_err: float, ref_std: flo
             f"max|ref| {ref_max:.3e})")
 
 
-LSE_BAR = 2e-5  # fp32 log-sum-exp against the plain version (measured <= 2e-6)
+LSE_BAR = 2e-5  # fp32 log-sum-exp against the plain version (the bf16 kernel reads
+# 1.2e-5 at the D=40 training shapes, 1.4e-6 at D=80; the scalar fp32 kernel 2.4e-6)
 
 
 def within_variant_bar(max_err: float, mean_err: float, ref_std: float, ref_max: float):
@@ -222,7 +281,7 @@ def kernel_phase(torch) -> dict:
     """K1 against flash_sdpa_reference, and K2 (`k2_row`) on the same
     inputs, at every main-path shape and the checks off it."""
     import torch.nn.functional as F
-    from vexpress_torch.ops import flash, launches
+    from vexpress_torch.ops import flash, flash_tma, launches
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 case compares fp32 results
     torch.backends.cudnn.allow_tf32 = False
@@ -249,12 +308,26 @@ def kernel_phase(torch) -> dict:
         del err
         ok, tol = within_k1_bar(dtype == torch.bfloat16, max_err, mean_err, ref_std)
         ms = cuda_time_ms(torch, lambda: flash.flash_sdpa(q, k, v, heads))
+        clock = sm_clock_mhz()  # beside the kernel's window
         plain_ms = cuda_time_ms(torch, lambda: flash.flash_sdpa_reference(q, k, v, heads),
                                 max_iters=5)
         qh, kh, vh = (t.reshape(t.shape[0], t.shape[1], heads, d).transpose(1, 2).contiguous()
                       for t in (q, k, v))
         library_ms = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
         del qh, kh, vh, out
+        extra = {}
+        if dtype == torch.bfloat16:
+            extra["sm_clock_mhz"] = clock
+            extra["exp_floor_ms"] = exp_floor_ms(b * heads * lq * lk, clock)
+            extra["layout_ms"] = {
+                sw: cuda_time_ms(torch, lambda sw=sw: flash._launch_fwd(q, k, v, heads, d**-0.5,
+                                                                        swizzle=sw))
+                for sw in flash_tma.SWIZZLES[d]}
+            if d == 40:
+                old = mma_sync_design(torch, q, k, v, heads)
+                old_err = float((old().float() - exact).abs().max())
+                extra.update(mma_sync_design_ms=cuda_time_ms(torch, old),
+                             mma_sync_design_max_abs_err=old_err)
         bound_ms, bound_by = k1_bound_ms(b, lq, lk, inner, heads, torch.tensor([], dtype=dtype)
                                          .element_size(), PEAK_BF16 if dtype == torch.bfloat16
                                          else PEAK_FP32)
@@ -262,11 +335,16 @@ def kernel_phase(torch) -> dict:
         row = dict(shape=name, dtype=dtype_name, B=b, Lq=lq, Lk=lk, H=heads, D=d,
                    main_path=main_path, kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
-                   mean_abs_err=mean_err, tolerance=tol)
+                   mean_abs_err=mean_err, tolerance=tol, **extra)
         rows.append(row)
         log(f"[kernel] {name} {dtype_name} B={b} Lq={lq} Lk={lk} D={d}: max|d|={max_err:.3e} "
             f"mean|d|={mean_err:.3e} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"sdpa {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+            f"sdpa {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
+            + (f", exp floor {extra['exp_floor_ms']:.3f} ms at {extra['sm_clock_mhz']:.0f} MHz, "
+               f"by layout (swizzle bytes: ms) {extra['layout_ms']}" if extra else "")
+            + (f", mma.sync design {extra['mma_sync_design_ms']:.3f} ms (max|d| "
+               f"{extra['mma_sync_design_max_abs_err']:.3e})" if "mma_sync_design_ms" in extra
+               else ""))
         if not (ok and finite):
             raise PhaseError(f"K1 disagrees with its plain version at {name}: max {max_err:.3e}, "
                              f"mean {mean_err:.3e}, finite {finite} ({tol})")
@@ -307,6 +385,7 @@ def k2_row(torch, q, k, v, heads, exact, k1_row) -> dict:
         # version's, so bf16(s - m) rounds other numbers (fp32 inputs too)
         ok, tol = within_k1_bar(True, max_err, mean_err, plain_std)
         ms = cuda_time_ms(torch, lambda: flash.flash_sdpa(q, k, v, heads))
+        clock = sm_clock_mhz()
         plain_ms = cuda_time_ms(torch, lambda: flash.flash_lite_reference(q, k, v, heads),
                                 max_iters=5)
     finally:
@@ -315,13 +394,18 @@ def k2_row(torch, q, k, v, heads, exact, k1_row) -> dict:
     row = dict(shape=name, dtype=k1_row["dtype"], B=b, Lq=lq, Lk=lk, H=heads, D=d,
                main_path=k1_row["main_path"], kernel_ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
                library_ms=k1_row["library_ms"], bound_ms=k1_row["bound_ms"],
-               bound_by=k1_row["bound_by"], exps=b * heads * lq * lk, max_abs_err=max_err,
+               bound_by=k1_row["bound_by"], exps=b * heads * lq * lk, sm_clock_mhz=clock,
+               exp_floor_ms=exp_floor_ms(b * heads * lq * lk, clock),
+               packed_exp_floor_ms=exp_floor_ms(b * heads * lq * lk / 2, clock),
+               max_abs_err=max_err,
                mean_abs_err=mean_err, tolerance=tol, exact_max_abs_err=exact_err,
                exact_tolerance=f"max<{K2_EXACT_BAR} vs exact fp32")
     log(f"[kernel] K2 {name} {row['dtype']} B={b} Lq={lq} Lk={lk} D={d}: max|d|={max_err:.3e} "
         f"mean|d|={mean_err:.3e} vs plain, max|d|={exact_err:.3e} vs exact; kernel {ms:.3f} ms, "
         f"K1 {k1_ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {row['library_ms']:.3f} ms, bound "
-        f"{row['bound_ms']:.3f} ms ({row['bound_by']}), {row['exps']:.3e} exps")
+        f"{row['bound_ms']:.3f} ms ({row['bound_by']}), {row['exps']:.3e} exps, exp floor "
+        f"{row['exp_floor_ms']:.3f} ms (packed pairs {row['packed_exp_floor_ms']:.3f}) at "
+        f"{clock:.0f} MHz")
     if not (ok and finite and exact_err < K2_EXACT_BAR):
         raise PhaseError(f"K2 disagrees at {name}: vs plain max {max_err:.3e} mean {mean_err:.3e} "
                          f"({tol}), vs exact max {exact_err:.3e} (<{K2_EXACT_BAR}), finite {finite}")
@@ -395,6 +479,7 @@ def grad_kernel_rows(torch, gen) -> list:
 
         di = flash.bwd_di(do, out_k, heads)
         fwd_ms = cuda_time_ms(torch, lambda: flash.flash_sdpa_fwd(q, k, v, heads, scale))
+        fwd_clock = sm_clock_mhz()
         dkv_ms = cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
                                                               need_dq=False))
         dq_ms = cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
@@ -420,12 +505,14 @@ def grad_kernel_rows(torch, gen) -> list:
                    main_path=bf16 and (name, b, lq, lk, inner, heads) in TRAIN_K1_SHAPES,
                    fwd_ms=fwd_ms, dkv_ms=dkv_ms, dq_ms=dq_ms, plain_fwd_ms=plain_fwd_ms,
                    plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_fwd_ms,
-                   sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
+                   sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms, sm_clock_mhz=fwd_clock,
+                   fwd_exp_floor_ms=exp_floor_ms(b * heads * lq * lk, fwd_clock),
                    bounds={k_: dict(ms=ms, by=by) for k_, (ms, by) in bounds.items()},
                    errors=errs)
         rows.append(row)
         log(f"[kernel] {name} {dtype_name} B={b} Lq={lq} Lk={lk} D={d} with gradient: "
-            f"fwd+lse {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f}), dk/dv {dkv_ms:.3f} ms "
+            f"fwd+lse {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f}, exp floor "
+            f"{row['fwd_exp_floor_ms']:.3f} at {fwd_clock:.0f} MHz), dk/dv {dkv_ms:.3f} ms "
             f"(bound {bounds['dkv'][0]:.3f}), dq {dq_ms:.3f} ms (bound {bounds['dq'][0]:.3f}), "
             f"pair bound {bounds['pair'][0]:.3f} ms; plain fwd {plain_fwd_ms:.3f} ms, plain bwd "
             f"{plain_bwd_ms:.3f} ms, sdpa fwd {sdpa_fwd_ms:.3f} ms, fwd+bwd "
@@ -1352,9 +1439,17 @@ def kernels_line(results: dict) -> list:
                     for r in main_grad if r["launches"]["flash_fwd"]])
     inf_n, train_n = results["full"]["flash_launches"], results["train_full"]["launches"].get(
         "flash_fwd", 0)
-    kernels = [entry("flash_fwd", "vexpress_torch/csrc/flash_fwd.cu",
-                     "vexpress_tpu/ops/flash.py:42", fwd_parts, inf_n + train_n,
+    ran_fwd = [r for r in fwd_rows if r["main_path"] and r["launches"]]
+    sources = ["vexpress_torch/csrc/flash_fwd_wgmma.cuh (bf16)",
+               "vexpress_torch/csrc/flash_fwd.cu (launch, fp32)"]
+    kernels = [entry("flash_fwd", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
+                     "vexpress_tpu/ops/flash.py:42", fwd_parts, inf_n + train_n, sources=sources,
                      launches_by_path=dict(full=inf_n, train_full=train_n),
+                     exp_floor_ms=sum(r["exp_floor_ms"] for r in ran_fwd)
+                     + sum(r["fwd_exp_floor_ms"] for r in main_grad if r["launches"]["flash_fwd"]),
+                     mma_sync_design_ms_d40=sum(r["mma_sync_design_ms"] for r in ran_fwd
+                                                if "mma_sync_design_ms" in r),
+                     ms_d40=sum(r["kernel_ms"] for r in ran_fwd if "mma_sync_design_ms" in r),
                      shapes=fwd_rows + [dict(r, kernel="flash_fwd") for r in main_grad])]
     for name, key, grads, lib_line in (
             ("flash_bwd_dkv", "dkv", ("dk", "dv"), ":941 _flash_attention_bwd_dkv"),
@@ -1376,13 +1471,14 @@ def kernels_line(results: dict) -> list:
         r["launches"] = cli_by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
     ran = [r for r in lite_rows if r["main_path"] and r["launches"]]
     kernels.append(entry(
-        "flash_lite_fwd", "vexpress_torch/csrc/flash_fwd.cu",
+        "flash_lite_fwd", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
         "vexpress_tpu/ops/flash_lite.py:68 flash_lite_fwd (pallas_call :89, body _fwd_kernel :33)",
         [(r["kernel_ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
           r["max_abs_err"]) for r in ran], results["cli_full"]["lite_launches"],
-        plain_is="flash_lite_reference", k1_ms=sum(r["k1_ms"] for r in ran),
-        exps=sum(r["exps"] for r in ran), launches_by_path=dict(cli_full=results["cli_full"][
-            "lite_launches"]), shapes=lite_rows))
+        plain_is="flash_lite_reference", sources=sources, k1_ms=sum(r["k1_ms"] for r in ran),
+        exps=sum(r["exps"] for r in ran), exp_floor_ms=sum(r["exp_floor_ms"] for r in ran),
+        packed_exp_floor_ms=sum(r["packed_exp_floor_ms"] for r in ran),
+        launches_by_path=dict(cli_full=results["cli_full"]["lite_launches"]), shapes=lite_rows))
     av = results["attn_variants"]
     for name, source, replaces, plain_is in (
             ("flash_fwd_variant", "vexpress_torch/csrc/flash_variants.cu",
@@ -1424,6 +1520,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = flash.build()
     log(f"[build] {lib.name}: {time.perf_counter() - t0:.1f} s")
+    sass = sass_phase()
 
     flash.FLASH_LITE = False  # K1 unless a phase turns K2 on
     results = {}
@@ -1446,7 +1543,7 @@ def main() -> int:
         log(f"[{name}] phase wall time {wall[name]:.1f} s")
     print(json.dumps({"phases": {k: v for k, v in results.items()
                                  if k not in ("kernel", "attn_variants")},
-                      "phase_wall_s": wall, "card": card}))
+                      "phase_wall_s": wall, "card": card, "sass": sass}))
 
     kernels = kernels_line(results)
     print(json.dumps({"kernels": kernels}))

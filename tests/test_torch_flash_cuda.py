@@ -1,5 +1,6 @@
-"""The Hopper flash kernel (vexpress_torch/csrc/flash_fwd.cu) against its
-plain version on the card. Marked `cuda`: without a CUDA device every test
+"""The Hopper flash kernel (vexpress_torch/csrc/flash_fwd.cu; bf16 through
+csrc/flash_fwd_wgmma.cuh) against its plain version on the card, and the
+SASS of the bf16 kernels. Marked `cuda`: without a CUDA device every test
 skips. On a machine with an H100:
 
     python -m pytest tests/test_torch_flash_cuda.py -q -m cuda --noconftest
@@ -10,8 +11,9 @@ skips. On a machine with an H100:
 import pytest
 import torch
 
-from chip_smoke import within_k1_bar
-from vexpress_torch.ops import attention, flash, launches
+from chip_smoke import LSE_BAR, within_k1_bar
+from vexpress_torch.ops import attention, flash, flash_tma, launches
+from vexpress_torch.tools.ptxas_report import sass_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -64,3 +66,33 @@ def test_unsupported_head_dim_raises(dev):
     q, k, v = _qkv(dev, 1, 512, 512, 2 * 64, torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         flash.flash_sdpa(q, k, v, 2)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("lq,lk", [(128, 128), (192, 320)])  # one tile; trailing 64-row/key tiles
+def test_tma_kernel_tiles(dev, lq, lk, d, with_lse):
+    """The bf16 kernel at one 128-row tile and at a trailing 64-row query
+    tile and 64-key tile, at every layout built for D, with and without the
+    log-sum-exp."""
+    q, k, v = _qkv(dev, 2, lq, lk, 2 * d, torch.bfloat16, seed=d)
+    ref, ref_lse = flash.flash_sdpa_reference(q.float(), k.float(), v.float(), 2, return_lse=True)
+    for sw in flash_tma.SWIZZLES[d]:
+        launches.reset()
+        out, lse = flash._launch_fwd(q, k, v, 2, d**-0.5, with_lse=with_lse, swizzle=sw)
+        torch.cuda.synchronize()
+        assert dict(launches.counts) == {"flash_fwd": 1}
+        _assert_within_bar(out, ref)
+        if with_lse:
+            assert float((lse - ref_lse).abs().max()) <= LSE_BAR, sw
+        else:
+            assert lse is None
+
+
+def test_bf16_forward_kernels_use_wgmma_and_tma(dev):
+    """Every bf16 forward kernel in the built library (K1 at 5 layouts, K2 at
+    3) holds HGMMA (wgmma) and UTMALDG (TMA loads) in its SASS."""
+    ops = sass_ops(flash.build(), "flash_fwd_wgmma")
+    assert len(ops) == 8, sorted(ops)
+    for name, found in ops.items():
+        assert {"HGMMA", "UTMALDG"} <= set(found), (name, found)

@@ -1,4 +1,5 @@
-"""K2, the LITE variant of vexpress_torch/csrc/flash_fwd.cu, against its plain
+"""K2, the LITE variant of vexpress_torch/csrc/flash_fwd.cu (bf16:
+csrc/flash_fwd_wgmma.cuh), against its plain
 version (ops/flash_lite.py::flash_lite_reference) on the card. Marked `cuda`:
 without a CUDA device every test skips. On a machine with an H100:
 
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from chip_smoke import within_k1_bar
-from vexpress_torch.ops import flash, launches
+from vexpress_torch.ops import flash, flash_tma, launches
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +51,24 @@ def test_k2_matches_plain(dev, dtype, b, lq, lk, heads, d):
     assert float((out.float() - exact).abs().max()) < 0.03  # tests/test_flash_lite.py's bar
 
 
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("lq,lk", [(128, 128), (192, 320)])  # one tile; trailing 64-row/key tiles
+def test_k2_tma_kernel_tiles(dev, d, lq, lk):
+    """The bf16 kernel (csrc/flash_fwd_wgmma.cuh) at one 128-row tile and at
+    a trailing 64-row query tile and 64-key tile, under K2's two bars."""
+    q, k, v = _qkv(dev, 2, lq, lk, 2 * d, torch.bfloat16, seed=d)
+    launches.reset()
+    out = flash.flash_sdpa(q, k, v, 2)
+    torch.cuda.synchronize()
+    assert dict(launches.counts) == {"flash_lite_fwd": 1}
+    plain = flash.flash_lite_reference(q, k, v, 2).float()
+    err = (out.float() - plain).abs()
+    ok, tol = within_k1_bar(True, float(err.max()), float(err.mean()), float(plain.std()))
+    assert ok, (float(err.max()), float(err.mean()), tol)
+    exact = flash.flash_sdpa_reference(q.float(), k.float(), v.float(), 2)
+    assert float((out.float() - exact).abs().max()) < 0.03
+
+
 def test_k2_with_gradient_raises(dev):
     q, k, v = _qkv(dev, 1, 512, 512, 80, torch.bfloat16)
     with pytest.raises(ValueError, match="VEXPRESS_FLASH_LITE"):
@@ -65,10 +84,11 @@ def test_k2_unsupported_head_dim_raises(dev):
 
 
 def test_k2_failed_launch_raises_without_fallback(dev, monkeypatch):
-    """The wrapper's checks off, the kernel refuses D=64 itself: the error
-    surfaces and no plain version runs in its place."""
+    """The wrapper's checks off (inputs and TMA geometry), the kernel refuses
+    D=64 itself: the error surfaces and no plain version runs in its place."""
     q, k, v = _qkv(dev, 1, 512, 512, 2 * 64, torch.bfloat16)
     monkeypatch.setattr(flash, "_check_kernel_inputs", lambda *a, **kw: None)
+    monkeypatch.setattr(flash_tma, "tma_violations", lambda *a, **kw: [])
     launches.reset()
     with pytest.raises(RuntimeError, match="K2 forward launch failed"):
         flash.flash_sdpa(q, k, v, 2)

@@ -1,5 +1,6 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// dtype conversions, bf16 packing and the mma.sync m16n8k16 bf16 product.
+// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// and the forward templates): dtype conversions, bf16 packing, K2's
+// roundings, element strides and the mma.sync m16n8k16 bf16 product.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..2t+1],
@@ -32,6 +33,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) is the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// exp of x rounded to bf16, the result rounded to bf16 (K2's probability)
+__device__ __forceinline__ float exp_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(__expf(__bfloat162float(__float2bfloat16_rn(x)))));
+}
+
+// bf16 pair times s, rounded to bf16 (K2's q pre-scale)
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack_bf16(f.x * s, f.y * s);
+}
+
+// element strides of the forward kernels: batch, head, row (the head dim is contiguous)
+struct Strides {
+  long long q_b, q_h, q_l, k_b, k_h, k_l, v_b, v_h, v_l, o_b, o_h, o_l;
+};
 
 // D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,

@@ -17,48 +17,61 @@
 // SFUs at 16/clk/SM, about 1.7 ms at 1.8 GHz: at D=40 the exps, not the
 // matrix products, set the real floor, and at D=80 the two are about equal.
 //
-// Design against that bound (a first, simple version):
-// * bf16: flash_fwd_mma (flash_fwd_mma.cuh) at its default tiling, one block
-//   of 4 warps per (batch*head, 64 query rows), K/V tiles of 64 keys, the head
-//   dim zero-padded to a multiple of 16 in shared memory and in the Q
-//   fragments (40 -> 48); mma.sync m16n8k16 for S = Q K^T and O += P V, P kept
-//   in registers.
-// * fp32: the same tiling with scalar FMAs (4 threads per query row, each
-//   owning D/4 columns), exact fp32 arithmetic; used by the parity checks.
-// Not done yet (later work): cp.async/TMA double buffering, wgmma, ldmatrix.
+// Design against that bound:
+// * bf16: flash_fwd_wgmma (flash_fwd_wgmma.cuh), one block of a TMA producer
+//   warpgroup and two wgmma consumer warpgroups per (128 query rows, batch,
+//   head), K/V tiles of 64 keys (128 at D=80) in a 3-stage mbarrier ring,
+//   two blocks an SM at D=40; in each warpgroup the softmax of one key tile
+//   runs while P V of the tile before does. The tensor maps
+//   are encoded here from the geometry that ops/flash_tma.py computes (dims,
+//   byte strides, box, swizzle, grid, shared memory), through the driver's
+//   cuTensorMapEncodeTiled (found with cudaGetDriverEntryPoint, so the
+//   library needs no -lcuda), and passed as __grid_constant__ parameters.
+//   K1's exps are ex2.approx.ftz.f32 with scale*log2(e) folded into one FMA.
+// * fp32: flash_fwd_simt, scalar FMAs (4 threads per query row, each owning
+//   D/4 columns), 64 query rows and 32-key tiles a block, exact fp32
+//   arithmetic; used by the parity checks.
+// Later work: the row sums on the tensor cores, part of the exps on the FMA
+// units (at D=40 the SFUs bound the kernel), ordering the two warpgroups'
+// softmax and products against each other.
 //
-// K2, the LITE variant (template flag LITE, entry point vx_flash_lite_fwd).
+// K2, the LITE variant (template flag LITE, `lite` argument).
 // Replaces: vexpress_tpu/ops/flash_lite.py::flash_lite_fwd (Pallas body
 // _fwd_kernel), which the JAX package runs in place of the library kernel
 // under VEXPRESS_FLASH_LITE=1. Its softmax differs from K1's on purpose:
 // q is multiplied by the scale cast to q's dtype and rounded to that dtype
-// when its tile is loaded (no fp32 scale*log2e fold); the running max is in
-// natural-log units; each probability is p = exp(bf16(s - m)) rounded to
-// bf16, and the running sum adds those bf16 values in fp32; P V takes the
-// bf16 p directly as its A fragments; the correction exp(m_old - m_new), the
-// sum and the accumulator stay fp32. Bound: the same operations as K1 and
-// one exp per logit. This first version takes each exp as __expf and rounds
-// it, so it spends as many SFU operations as K1; the packed bf16x2 ex2 that
-// would halve them is later work. Its key tile (64, 32 in fp32) is not the
-// TPU kernel's 512, so the running max, and with it what is rounded, differs
-// from the plain version's: they agree to bf16 rounding, not bitwise.
+// (bf16: in shared memory, before the first product; no fp32 scale*log2e
+// fold); the running max is in natural-log units; the correction exp(m_old -
+// m_new), the sum and the accumulator stay fp32; the sum adds the bf16
+// probabilities in fp32 and P V takes them as they are. Each probability is
+// bf16(exp(bf16(s - m))) in the plain version (ops/flash_lite.py) and the TPU
+// kernel; the bf16 kernel takes it as ex2.approx.ftz.bf16x2 of
+// bf16(bf16(s - m) * log2(e)) on packed pairs (the product by two bf16x2
+// FMAs with log2(e) split in two bf16), one SFU operation for two exps, which
+// moves p by about a bf16 ulp (flash_lite.lite_packed_exp emulates it); the fp32 kernel as __expf of bf16(s - m), rounded. Its key
+// tile (128 in bf16, 32 in fp32) is not the TPU kernel's 512, so the running
+// max, and with it what is rounded, differs from the plain version's: they
+// agree to bf16 rounding, not bitwise.
 //
-// Layout: q (B, Lq, H*D), k/v (B, Lk, H*D), o like q, read through the batch
-// and row strides given (elements); the last dim is contiguous. Lq and Lk must
-// be multiples of 64 and D one of 40, 80, 160 (the wrapper checks).
-// The launch goes on the caller's stream, allocates nothing and does not
-// synchronise; the function returns cudaGetLastError().
+// Layout: q (B, Lq, H*D), k/v (B, Lk, H*D), o like q; bf16 tensors
+// contiguous, fp32 read through the batch and row strides given (elements;
+// the last dim contiguous). Lq and Lk must be multiples of 64 and D one of
+// 40, 80, 160 (the wrapper checks). A launch goes on the caller's stream,
+// allocates nothing and does not synchronise; each function returns
+// cudaGetLastError(), or a failed encode's code (vx_error_string names it).
 
-#include "flash_fwd_mma.cuh"
+#include <stdio.h>
+
+#include "flash_fwd_wgmma.cuh"
 
 namespace {
 
 using namespace vx;
 
-constexpr int BQ = 64;  // query rows per block (both variants)
+constexpr int BQ = 64;  // query rows per block of the scalar kernel
 
 // ------------------------------------------------------------- scalar (SIMT)
-// `scale` as in flash_fwd_mma; the packed layout only (head stride D)
+// `scale` as in flash_fwd_wgmma; the packed layout only (head stride D)
 template <typename T, int D, bool LITE>
 __global__ void __launch_bounds__(256)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -129,61 +142,157 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   for (int d = 0; d < DQ; ++d) op[d] = from_f32<T>(acc[d] * inv);
 }
 
-template <int D, bool LITE>
-void launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse, int B,
-            int H, int Lq, int Lk, const Strides& st, float scale, cudaStream_t s) {
-  if (dtype == 1) {
-    // K1's tiling: 64 query rows and 64 keys a block, D padded to 16, one (b, h)
-    launch_mma<D, LITE, BQ, 64, (D + 15) / 16 * 16, 1, false>(q, k, v, o, lse, B, H, Lq, Lk, st,
-                                                             scale, s);
-  } else {
-    flash_fwd_simt<float, D, LITE><<<dim3(Lq / BQ, B * H), 256, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), lse, H, Lk, st, scale);
-  }
+// ------------------------------------------------------------- bf16 (TMA)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+constexpr int ERR_ENCODE = 10000;    // + the CUresult of a failed encode
+constexpr int ERR_NO_ENCODE = 20000; // the driver has no cuTensorMapEncodeTiled
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
-template <bool LITE>
-int forward(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
-            int H, int Lq, int Lk, int D, const Strides& st, float scale, cudaStream_t s) {
-  if ((dtype != 0 && dtype != 1) || Lq % BQ != 0 || Lk % 64 != 0 || B * H > 65535)
+// A 4-D bf16 map: dims (D, H, L, B), byte strides of dims 1..3, box
+// (cols, 1, rows, 1), zeros past the tensor's bounds.
+int encode(CUtensorMap* map, const void* base, const long long* dims, const long long* strides,
+           int cols, int rows, int sw) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_NO_ENCODE;
+  const cuuint64_t gdim[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1], (cuuint64_t)dims[2],
+                              (cuuint64_t)dims[3]};
+  const cuuint64_t gstride[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
+                                 (cuuint64_t)strides[2]};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim,
+                        gstride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// `geom` (ops/flash_tma.py::geometry_arg): swizzle bytes, box columns, box
+// rows of q and of k/v, grid x and y, dynamic shared memory bytes, then q's
+// dims (D, H, Lq, B) and byte strides, then k's (v's are k's).
+template <int D, bool LITE, int SW>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int H, int Lq,
+                 int Lk, const long long* geom, float scale, cudaStream_t s) {
+  using T = WgmmaTile<D, SW>;
+  if (geom[1] != T::CW || geom[2] != WG_BQ || geom[3] != T::BK || geom[6] != T::SMEM ||
+      geom[4] != (Lq + WG_BQ - 1) / WG_BQ || geom[5] <= 0 || geom[5] > 65535)
     return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 40: launch<40, LITE>(dtype, q, k, v, o, lse, B, H, Lq, Lk, st, scale, s); break;
-    case 80: launch<80, LITE>(dtype, q, k, v, o, lse, B, H, Lq, Lk, st, scale, s); break;
-    case 160: launch<160, LITE>(dtype, q, k, v, o, lse, B, H, Lq, Lk, st, scale, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  CUtensorMap tq, tk, tv;
+  int rc = encode(&tq, q, geom + 7, geom + 11, T::CW, WG_BQ, SW);
+  if (rc == 0) rc = encode(&tk, k, geom + 14, geom + 18, T::CW, T::BK, SW);
+  if (rc == 0) rc = encode(&tv, v, geom + 14, geom + 18, T::CW, T::BK, SW);
+  if (rc != 0) return rc;
+  const auto kernel = flash_fwd_wgmma<D, LITE, SW>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<dim3((unsigned)geom[4], (unsigned)geom[5]), WG_THREADS, T::SMEM, s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, scale);
   return (int)cudaGetLastError();
+}
+
+// the (D, swizzle) instantiations: K1 at both layouts of D=40 and D=80, K2
+// at the wrapper's default (ops/flash_tma.py: SWIZZLES, SWIZZLE)
+#define VX_WGMMA_K1(X) X(40, 32) X(40, 128) X(80, 32) X(80, 128) X(160, 64)
+#define VX_WGMMA_K2(X) X(40, 128) X(80, 128) X(160, 64)
+
+template <bool LITE>
+int forward_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int H, int Lq,
+                 int Lk, int D, const long long* geom, float scale, cudaStream_t s) {
+  const int sw = (int)geom[0];
+#define VX_CASE(D_, SW_) \
+  if (D == D_ && sw == SW_)  \
+    return launch_wgmma<D_, LITE, SW_>(q, k, v, o, lse, H, Lq, Lk, geom, scale, s);
+  if constexpr (LITE) {
+    VX_WGMMA_K2(VX_CASE)
+  } else {
+    VX_WGMMA_K1(VX_CASE)
+  }
+#undef VX_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D, bool LITE>
+void launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                 int Lq, int Lk, const Strides& st, float scale, cudaStream_t s) {
+  flash_fwd_simt<float, D, LITE><<<dim3(Lq / BQ, B * H), 256, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, H, Lk, st, scale);
+}
+
+bool shape_ok(int B, int H, int Lq, int Lk) {
+  return Lq % 64 == 0 && Lk % 64 == 0 && Lq > 0 && Lk > 0 && B * H <= 65535;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lse` is null or
-// a contiguous (B, H, Lq) float32 buffer that receives each row's natural-log
-// log-sum-exp of the scaled logits (what the backward kernels read).
-int vx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
-                 int B, int H, int Lq, int Lk, int D, long long q_sb, long long q_sl,
-                 long long k_sb, long long k_sl, long long v_sb, long long v_sl, long long o_sb,
-                 long long o_sl, float scale, void* stream) {
-  const Strides st{q_sb, D, q_sl, k_sb, D, k_sl, v_sb, D, v_sl, o_sb, D, o_sl};
-  return forward<false>(q, k, v, o, static_cast<float*>(lse), dtype, B, H, Lq, Lk, D, st,
-                        scale * LOG2E, static_cast<cudaStream_t>(stream));
+// bf16, contiguous q, k, v, o. `lse` is null or a contiguous (B, H, Lq)
+// float32 buffer that receives each row's natural-log log-sum-exp of the
+// scaled logits (what the backward kernels read); K2 (`lite`) takes none.
+// `scale`: K1 the softmax scale, K2 the scale already rounded to bf16.
+int vx_flash_fwd_tma(const void* q, const void* k, const void* v, void* o, void* lse, int lite,
+                     int B, int H, int Lq, int Lk, int D, const long long* geom, float scale,
+                     void* stream) {
+  if (!shape_ok(B, H, Lq, Lk) || (lite && lse != nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return lite ? forward_bf16<true>(q, k, v, o, nullptr, H, Lq, Lk, D, geom, scale, s)
+              : forward_bf16<false>(q, k, v, o, static_cast<float*>(lse), H, Lq, Lk, D, geom,
+                                    scale * LOG2E, s);
 }
 
-// K2: the same layout and arguments without `lse`; `scale` is the softmax
-// scale already rounded to q's dtype (bf16(scale) for bf16 inputs).
-int vx_flash_lite_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
-                      int H, int Lq, int Lk, int D, long long q_sb, long long q_sl,
-                      long long k_sb, long long k_sl, long long v_sb, long long v_sl,
-                      long long o_sb, long long o_sl, float scale, void* stream) {
+// fp32, read through the strides given (elements); `lse`, `lite` and
+// `scale` as above (K2's scale rounded to fp32 is the scale).
+int vx_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int lite,
+                     int B, int H, int Lq, int Lk, int D, long long q_sb, long long q_sl,
+                     long long k_sb, long long k_sl, long long v_sb, long long v_sl,
+                     long long o_sb, long long o_sl, float scale, void* stream) {
+  if (!shape_ok(B, H, Lq, Lk) || (lite && lse != nullptr)) return (int)cudaErrorInvalidValue;
   const Strides st{q_sb, D, q_sl, k_sb, D, k_sl, v_sb, D, v_sl, o_sb, D, o_sl};
-  return forward<true>(q, k, v, o, nullptr, dtype, B, H, Lq, Lk, D, st, scale,
-                       static_cast<cudaStream_t>(stream));
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VX_SIMT(D_)                                                                      \
+  if (D == D_) {                                                                         \
+    if (lite)                                                                            \
+      launch_simt<D_, true>(q, k, v, o, nullptr, B, H, Lq, Lk, st, scale, s);            \
+    else                                                                                 \
+      launch_simt<D_, false>(q, k, v, o, l, B, H, Lq, Lk, st, scale * LOG2E, s);         \
+    return (int)cudaGetLastError();                                                      \
+  }
+  VX_SIMT(40)
+  VX_SIMT(80)
+  VX_SIMT(160)
+#undef VX_SIMT
+  return (int)cudaErrorInvalidValue;
 }
 
-const char* vx_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+const char* vx_error_string(int code) {
+  static thread_local char buf[96];
+  if (code == ERR_NO_ENCODE) return "cuTensorMapEncodeTiled not found in the CUDA driver";
+  if (code >= ERR_ENCODE) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)", code - ERR_ENCODE);
+    return buf;
+  }
+  return cudaGetErrorString((cudaError_t)code);
+}
 
 }  // extern "C"

@@ -1,7 +1,8 @@
-// The bf16 tensor-core forward kernel shared by K1 and K2 (flash_fwd.cu), T1
-// (flash_variants.cu) and T2 (splash_fwd.cu); each of those sources states
-// what it replaces and its bound. Every source that includes this header gets
-// its own copies of the instantiations it launches (anonymous namespace).
+// The bf16 mma.sync forward kernel of T1 (flash_variants.cu) and T2
+// (splash_fwd.cu): K1's design before its redesign for Hopper
+// (flash_fwd_wgmma.cuh); each of those sources states what it replaces and its
+// bound. Every source that includes this header gets its own copies of the
+// instantiations it launches (anonymous namespace).
 //
 // One block of BQ/16 warps per (BQ query rows, HB (batch, head) pairs). Each
 // warp owns 16 rows; its Q fragments stay in registers for the whole key loop.
@@ -20,8 +21,8 @@
 // own warps instead would multiply the block's shared memory by HB for the same
 // work per warp.
 //
-// Template flags: LITE (K2's probabilities, see flash_fwd.cu) and P_SPLIT
-// (T2's: p enters P V as the bf16 pair p_hi + p_lo, see splash_fwd.cu).
+// Template flag P_SPLIT (T2's: p enters P V as the bf16 pair p_hi + p_lo, see
+// splash_fwd.cu).
 
 #pragma once
 
@@ -33,22 +34,6 @@ namespace {
 
 using namespace vx;
 
-// element strides: batch, head, row (the head dim is contiguous)
-struct Strides {
-  long long q_b, q_h, q_l, k_b, k_h, k_l, v_b, v_h, v_l, o_b, o_h, o_l;
-};
-
-// exp of x rounded to bf16, the result rounded to bf16 (K2's probability)
-__device__ __forceinline__ float exp_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(__expf(__bfloat162float(__float2bfloat16_rn(x)))));
-}
-
-// bf16 pair times s, rounded to bf16 (K2's q pre-scale)
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  return pack_bf16(f.x * s, f.y * s);
-}
-
 // (lo, hi) rounded to bf16 (`hi_bits`) and what that rounding left, rounded
 // to bf16 (`lo_bits`): hi + lo holds each value to about 16 significant bits
 __device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& hi_bits,
@@ -59,18 +44,16 @@ __device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& hi_bits
   lo_bits = pack_bf16(lo - rf.x, hi - rf.y);
 }
 
-// `scale`: K1, T1 and T2 pass the softmax scale times log2(e), applied to the
-// logits (T2's q is pre-scaled, so its scale is log2(e) alone); K2 (LITE)
-// passes the scale rounded to q's dtype, applied to q as its tile is loaded.
-template <int D, bool LITE, int BQ = 64, int BK = 64, int DP = (D + 15) / 16 * 16, int HB = 1,
+// `scale`: the softmax scale times log2(e), applied to the logits (T2's q is
+// pre-scaled, so its scale is log2(e) alone).
+template <int D, int BQ = 64, int BK = 64, int DP = (D + 15) / 16 * 16, int HB = 1,
           bool P_SPLIT = false>
 __global__ void __launch_bounds__(BQ * 2)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-              float* __restrict__ lse, int H, int Lk, Strides st, float scale) {
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H, int Lk,
+              Strides st, float scale) {
   static_assert(BQ == 64 || BQ == 128, "4 or 8 warps of 16 rows");
   static_assert(BK % 16 == 0 && DP % 16 == 0 && DP >= D && D % 8 == 0, "mma tiling");
-  static_assert(!(LITE && P_SPLIT), "K2 rounds p to bf16");
   constexpr int KD = DP / 16;   // k-steps of S = Q K^T
   constexpr int NT = DP / 8;    // n-tiles of O
   constexpr int SS = DP + 8;    // smem row stride: conflict-free fragment reads
@@ -112,13 +95,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       qf[kd][1] = c < D ? *reinterpret_cast<const uint32_t*>(p1 + c) : 0u;
       qf[kd][2] = c + 8 < D ? *reinterpret_cast<const uint32_t*>(p0 + c + 8) : 0u;
       qf[kd][3] = c + 8 < D ? *reinterpret_cast<const uint32_t*>(p1 + c + 8) : 0u;
-      if constexpr (LITE) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qf[kd][i] = scale_bf16x2(qf[kd][i], scale);
-      }
     }
 
-    // running max of rows g and g+8: log2 units (K1, T1, T2), natural-log units (K2)
+    // running max of rows g and g+8, log2 units
     float m0 = -INFINITY, m1 = -INFINITY;
     float l0 = 0.f, l1 = 0.f;  // this thread's share of the running sums
     float acc[NT][4];
@@ -155,12 +134,10 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        if constexpr (!LITE) {
-          s[j][0] *= scale;
-          s[j][1] *= scale;
-          s[j][2] *= scale;
-          s[j][3] *= scale;
-        }
+        s[j][0] *= scale;
+        s[j][1] *= scale;
+        s[j][2] *= scale;
+        s[j][3] *= scale;
         mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
         mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
       }
@@ -169,24 +146,17 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
       // 0 on the first tile
-      const float a0 = LITE ? __expf(m0 - mx0) : exp2f(m0 - mx0);
-      const float a1 = LITE ? __expf(m1 - mx1) : exp2f(m1 - mx1);
+      const float a0 = exp2f(m0 - mx0);
+      const float a1 = exp2f(m1 - mx1);
       m0 = mx0;
       m1 = mx1;
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        if constexpr (LITE) {  // bf16 values, so the packing below is exact
-          s[j][0] = exp_bf16(s[j][0] - m0);
-          s[j][1] = exp_bf16(s[j][1] - m0);
-          s[j][2] = exp_bf16(s[j][2] - m1);
-          s[j][3] = exp_bf16(s[j][3] - m1);
-        } else {
-          s[j][0] = exp2f(s[j][0] - m0);
-          s[j][1] = exp2f(s[j][1] - m0);
-          s[j][2] = exp2f(s[j][2] - m1);
-          s[j][3] = exp2f(s[j][3] - m1);
-        }
+        s[j][0] = exp2f(s[j][0] - m0);
+        s[j][1] = exp2f(s[j][1] - m0);
+        s[j][2] = exp2f(s[j][2] - m1);
+        s[j][3] = exp2f(s[j][3] - m1);
         rs0 += s[j][0] + s[j][1];
         rs1 += s[j][2] + s[j][3];
       }
@@ -232,13 +202,6 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    if constexpr (!LITE) {
-      if (lse != nullptr && t == 0) {  // natural-log LSE of the scaled logits
-        float* lp = lse + (long long)bh * gridDim.x * BQ;
-        lp[r0] = (m0 + log2f(l0)) * LN2;
-        lp[r0 + 8] = (m1 + log2f(l1)) * LN2;
-      }
-    }
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     __nv_bfloat16* o0 = ob + r0 * st.o_l;
     __nv_bfloat16* o1 = ob + (r0 + 8) * st.o_l;
@@ -256,14 +219,13 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 // One launch of a bf16 instantiation on stream `s`: grid (Lq/BQ, B*H/HB),
 // BQ/16 warps a block. The caller checks that BQ divides Lq, BK divides Lk
 // and HB divides B*H.
-template <int D, bool LITE, int BQ, int BK, int DP, int HB, bool P_SPLIT>
-void launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                int Lq, int Lk, const Strides& st, float scale, cudaStream_t s) {
+template <int D, int BQ, int BK, int DP, int HB, bool P_SPLIT>
+void launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
+                int Lk, const Strides& st, float scale, cudaStream_t s) {
   const dim3 grid(Lq / BQ, B * H / HB);
-  flash_fwd_mma<D, LITE, BQ, BK, DP, HB, P_SPLIT><<<grid, BQ * 2, 0, s>>>(
+  flash_fwd_mma<D, BQ, BK, DP, HB, P_SPLIT><<<grid, BQ * 2, 0, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lk, st,
-      scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, Lk, st, scale);
 }
 
 // Strides from 12 element strides: (batch, head, row) of q, k, v, o in turn.

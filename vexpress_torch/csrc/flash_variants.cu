@@ -1,4 +1,4 @@
-// T1: K1's forward at other tilings, for Hopper (sm_90a), plain C interface.
+// T1: K1's mma.sync forward at other tilings, for Hopper (sm_90a), plain C interface.
 //
 // Replaces: tools/bench_attn_variants.py:77-95 (`flash_at`) and :156-172
 // (`flash_bb`), which run the JAX library's Pallas TPU flash_attention
@@ -14,7 +14,7 @@
 // padding adds tensor-core work (k-steps of S = Q K^T and n-tiles of P V) but
 // no work the function needs.
 //
-// Design: flash_fwd_mma (flash_fwd_mma.cuh), K1's kernel, with its tiling as
+// Design: flash_fwd_mma (flash_fwd_mma.cuh), K1's first kernel, with its tiling as
 // template parameters: query rows per block BQ (64 or 128: 4 or 8 warps), keys
 // per shared-memory tile BK, the padded head dim DP (48, the natural padding
 // of D=40 to the mma depth, or 64, or 128: zero columns in shared memory and
@@ -22,7 +22,7 @@
 // bytes), and (batch, head) pairs per block HB (1, 2, 4), walked in turn by
 // the block. Only the bench's rows are instantiated, at D=40, bf16:
 //   BQ  BK  DP  HB
-//   64  64  48  1   t1_native (K1's own instantiation)
+//   64  64  48  1   t1_native (K1's tiling before flash_fwd_wgmma.cuh)
 //   64  64  64  1   t1_pad64
 //   64  64 128  1   t1_pad128
 //   64  64  48  2,4 t1_hb*_q64k64   (the tool's block_q = block_k)
@@ -70,8 +70,8 @@ int vx_flash_fwd_variant(const void* q, const void* k, const void* v, void* o, i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VX_T1_LAUNCH(BQ_, BK_, DP_, HB_)                                                    \
   if (block_q == BQ_ && block_k == BK_ && d_pad == DP_ && heads_per_block == HB_) {        \
-    launch_mma<40, false, BQ_, BK_, DP_, HB_, false>(q, k, v, o, nullptr, B, H, Lq, Lk, st, \
-                                                      scale * LOG2E, s);                    \
+    launch_mma<40, BQ_, BK_, DP_, HB_, false>(q, k, v, o, B, H, Lq, Lk, st, scale * LOG2E, \
+                                              s);                                           \
     return (int)cudaGetLastError();                                                         \
   }
   VX_T1_ROWS(VX_T1_LAUNCH)

@@ -61,8 +61,7 @@ int vx_splash_mha_fwd(const void* q, const void* k, const void* v, void* o, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VX_T2_LAUNCH(BQ_, BK_, DP_)                                                          \
   if (block_q == BQ_ && block_kv == BK_ && d_pad == DP_) {                                  \
-    launch_mma<40, false, BQ_, BK_, DP_, 1, true>(q, k, v, o, nullptr, B, H, Lq, Lk, st, LOG2E, \
-                                                   s);                                       \
+    launch_mma<40, BQ_, BK_, DP_, 1, true>(q, k, v, o, B, H, Lq, Lk, st, LOG2E, s);        \
     return (int)cudaGetLastError();                                                          \
   }
   VX_T2_ROWS(VX_T2_LAUNCH)

@@ -3,12 +3,13 @@
 Counterpart of vexpress_tpu/ops/flash.py, whose `flash_sdpa` calls the JAX
 library's Pallas TPU flash-attention kernel (and, under a gradient, its two
 backward kernels). Here the kernels are `csrc/flash_fwd.cu` (forward, with an
-optional log-sum-exp output) and `csrc/flash_bwd.cu` (dk/dv and dq), CUDA C++
-for sm_90a, built by nvcc into one plain-C shared library under
-`vexpress_torch/_build/` at first use and called through ctypes. The same
-library holds the attention-variant bench's kernels T1 and T2
-(`ops/flash_variants.py`, `ops/splash.py`), which share K1's forward
-template, `csrc/flash_fwd_mma.cuh`.
+optional log-sum-exp output: bf16 through TMA and wgmma,
+`csrc/flash_fwd_wgmma.cuh`, with its host-side geometry in `flash_tma.py`;
+fp32 scalar) and `csrc/flash_bwd.cu` (dk/dv and dq), CUDA C++ for sm_90a,
+built by nvcc into one plain-C shared library under `vexpress_torch/_build/`
+at first use and called through ctypes. The same library holds the
+attention-variant bench's kernels T1 and T2 (`ops/flash_variants.py`,
+`ops/splash.py`), on K1's first, mma.sync design, `csrc/flash_fwd_mma.cuh`.
 
 `flash_sdpa` sends CUDA tensors to the kernels and CPU tensors to
 `flash_sdpa_reference`, the same function in plain torch, which autograd
@@ -37,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import flash_tma
 from .flash_lite import flash_lite_reference, lite_supported
 from .launches import counts, shapes
 
@@ -114,12 +116,11 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-            lib.vx_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                         ll, ll, ll, ll, ll, ll, ll, ll, f, p]
-            lib.vx_flash_fwd.restype = i
-            lib.vx_flash_lite_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                              ll, ll, ll, ll, ll, ll, ll, ll, f, p]
-            lib.vx_flash_lite_fwd.restype = i
+            lib.vx_flash_fwd_tma.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, f, p]
+            lib.vx_flash_fwd_tma.restype = i
+            lib.vx_flash_fwd_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                             ll, ll, ll, ll, ll, ll, ll, ll, f, p]
+            lib.vx_flash_fwd_f32.restype = i
             lib.vx_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
             lib.vx_flash_bwd_dkv.restype = i
             lib.vx_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
@@ -221,13 +222,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> Non
 
 
 def _check_kernel_inputs(heads: int, **tensors: torch.Tensor) -> None:
-    """What the CUDA kernels take: bf16 or fp32, D in KERNEL_HEAD_DIMS, Lq and
-    Lk multiples of 64, contiguous 16-byte aligned tensors."""
+    """What the CUDA kernels take: CUDA tensors as `check_kernel_layout` says."""
+    if tensors["q"].device.type != "cuda":
+        raise ValueError(f"flash kernels: unsupported device {tensors['q'].device}")
+    check_kernel_layout(heads, **tensors)
+
+
+def check_kernel_layout(heads: int, **tensors: torch.Tensor) -> None:
+    """What the CUDA kernels take on any device: bf16 or fp32, D in
+    KERNEL_HEAD_DIMS, Lq and Lk multiples of 64, contiguous 16-byte aligned
+    tensors of q's dtype and device."""
     q = tensors["q"]
     b, lq, inner = q.shape
     lk, d = tensors["k"].shape[1], inner // heads
-    if q.device.type != "cuda":
-        raise ValueError(f"flash kernels: unsupported device {q.device}")
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"flash kernels take {KERNEL_DTYPES}, got {q.dtype}")
     if d not in KERNEL_HEAD_DIMS:
@@ -257,24 +264,39 @@ def _dtype_code(t: torch.Tensor) -> int:
     return 1 if t.dtype == torch.bfloat16 else 0
 
 
-def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool):
-    """csrc/flash_fwd.cu on the current stream: (out, lse or None)."""
+def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool = False, lite: bool = False,
+                swizzle: Optional[int] = None):
+    """csrc/flash_fwd.cu on the current stream: K1, or K2 with `lite`; bf16
+    through the TMA/wgmma kernel at `swizzle` (default flash_tma.SWIZZLE),
+    fp32 through the scalar kernel. Returns (out, lse or None)."""
     _check_kernel_inputs(heads, q=q, k=k, v=v)
     b, lq, inner = q.shape
     lk, d = k.shape[1], inner // heads
+    geom = None
+    if q.dtype == torch.bfloat16:
+        geom = flash_tma.fwd_geometry(b, lq, lk, heads, d, swizzle)
+        bad = flash_tma.tma_violations(geom, lite)
+        if bad:
+            raise ValueError("flash forward kernel cannot take this launch: " + "; ".join(bad))
     lib = _library()
     out = torch.empty_like(q)
     lse = (torch.empty((b, heads, lq), dtype=torch.float32, device=q.device) if with_lse
            else None)
+    lse_ptr = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
-        rc = lib.vx_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), _dtype_code(q), b, heads, lq, lk, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1), float(scale), _stream(q))
-    _raise_on(rc, "forward")
-    counts["flash_fwd"] += 1
-    shapes[("flash_fwd", b, lq, lk, d)] += 1
+        if geom is not None:
+            rc = lib.vx_flash_fwd_tma(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      lse_ptr, int(lite), b, heads, lq, lk, d,
+                                      flash_tma.geometry_arg(geom), float(scale), _stream(q))
+        else:
+            rc = lib.vx_flash_fwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, int(lite), b,
+                heads, lq, lk, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                v.stride(0), v.stride(1), out.stride(0), out.stride(1), float(scale), _stream(q))
+    name = "flash_lite_fwd" if lite else "flash_fwd"
+    _raise_on(rc, "K2 forward" if lite else "forward")
+    counts[name] += 1
+    shapes[(name, b, lq, lk, d)] += 1
     return out, lse
 
 
@@ -282,21 +304,8 @@ def launch_lite(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
                 scale: float) -> torch.Tensor:
     """K2, the LITE variant of csrc/flash_fwd.cu, on the current stream. The
     kernel multiplies q by the scale cast to q's dtype, as the TPU kernel does."""
-    _check_kernel_inputs(heads, q=q, k=k, v=v)
-    b, lq, inner = q.shape
-    lk, d = k.shape[1], inner // heads
-    lib = _library()
-    out = torch.empty_like(q)
     scale_q = float(torch.tensor(scale, dtype=q.dtype))
-    with torch.cuda.device(q.device):
-        rc = lib.vx_flash_lite_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _dtype_code(q), b, heads,
-            lq, lk, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1), scale_q, _stream(q))
-    _raise_on(rc, "K2 forward")
-    counts["flash_lite_fwd"] += 1
-    shapes[("flash_lite_fwd", b, lq, lk, d)] += 1
-    return out
+    return _launch_fwd(q, k, v, heads, scale_q, lite=True)[0]
 
 
 def bwd_di(do: torch.Tensor, o: torch.Tensor, heads: int) -> torch.Tensor:
@@ -423,4 +432,4 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
         return flash_sdpa_reference(q, k, v, heads, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, heads, scale)
-    return _launch_fwd(q, k, v, heads, scale, with_lse=False)[0]
+    return _launch_fwd(q, k, v, heads, scale)[0]

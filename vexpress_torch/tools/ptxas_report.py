@@ -5,7 +5,13 @@ as ptxas reports them for sm_90a with the flags of the library build
     python -m vexpress_torch.tools.ptxas_report
 
 Prints one line per kernel: source, registers, shared memory bytes, spill
-stores and loads, and the demangled name.
+stores and loads, and the demangled name; then every warning nvcc or ptxas
+gave (a `setmaxnreg` that ptxas ignored, wgmma it had to serialise).
+
+`sass_ops` reads the built library's SASS (cuobjdump, from the toolkit) and
+tells which of some opcodes each kernel holds: chip_smoke.py and the card
+tests check that the bf16 forward kernels hold HGMMA (wgmma) and UTMALDG
+(TMA loads).
 """
 
 from __future__ import annotations
@@ -53,6 +59,26 @@ def parse(source: str, log: str) -> List[dict]:
     return rows
 
 
+def sass_ops(library: pathlib.Path, name_part: str,
+             opcodes=("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA")) -> Dict[str, List[str]]:
+    """Kernels of the built `library` whose mangled name holds `name_part`,
+    each with the `opcodes` its SASS holds."""
+    tool = pathlib.Path(flash.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool) if tool.exists() else "cuobjdump", "-sass", str(library)],
+                         capture_output=True, text=True, check=True, timeout=600).stdout
+    found: Dict[str, set] = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if name_part in m.group(1) else None
+            if cur:
+                found[cur] = set()
+        elif cur:
+            found[cur].update(op for op in opcodes if op in line)
+    return {name: sorted(ops) for name, ops in found.items()}
+
+
 def main(argv=None) -> List[dict]:
     nvcc = flash.nvcc_path()
     sources = sorted(flash._CSRC.glob("*.cu"))
@@ -61,17 +87,21 @@ def main(argv=None) -> List[dict]:
                                    str(pathlib.Path(tmp) / (src.stem + ".o")), str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for src in sources]
-        rows = []
+        rows, warnings = [], []
         for src, proc in zip(sources, procs):
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc {src.name} failed ({proc.returncode}):\n{log}")
             rows += parse(src.name, log)
+            warnings += [f"{src.name}: {line.strip()}" for line in log.splitlines()
+                         if "warning" in line.lower()]
     names = _demangle([r["mangled"] for r in rows], nvcc)
     for r in rows:
         r["name"] = names[r["mangled"]]
         print(f"{r['source']:<20} {r['registers']:>4} regs {r['smem']:>6} B smem "
               f"spill {r['spill_stores']}/{r['spill_loads']} B  {r['name']}", flush=True)
+    for w in warnings:
+        print(w, flush=True)
     return rows
 
 
