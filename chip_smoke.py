@@ -15,10 +15,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                 with log-sum-exp, dk/dv and dq kernels) through
                 FlashAttention; times of each kernel, its plain version, one
                 PyTorch library call (a yardstick only), K1 beside K2 on the
-                same inputs, K1 at its other shared-memory layout, K1's
-                mma.sync design (T1's kernel at K1's old tiling) on the same
-                inputs at D=40, the card's bound and the exp floor (exps over
-                the SFUs' rate at the SM clock read beside the window)
+                same inputs, K1's mma.sync design (T1's kernel at K1's old
+                tiling) on the same inputs at D=40, and the card's bound; at
+                the reference net's B=1 shapes also K1, K2 and the library
+                call replayed from a CUDA graph and the host's time to issue
+                one call. The log lines add the exp floor (exps over the
+                SFUs' rate at the SM clock read beside the window)
   parity        a reduced-depth fp32 pipeline run on the card against the same
                 run on the CPU (decoded-video PSNR); then the CLI's
                 configuration on the same models: DPM-Solver++, save_memory,
@@ -140,6 +142,40 @@ def cuda_time_ms(torch, fn, min_total_ms: float = 200.0, max_iters: int = 50) ->
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(torch, fn, calls: int = 20) -> float:
+    """Mean device time of fn() when `calls` of them replay from one CUDA
+    graph: the same launches with no host work between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_time_ms(torch, graph.replay) / calls
+
+
+def host_time_ms(torch, fn, calls: int = 50) -> float:
+    """Mean host time to issue fn() (the wrapper's Python and C++ work and
+    the launch), the card idle at the start."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / calls
+
+
+def small_shape_times(torch, fn) -> dict:
+    """At the reference net's B=1 shapes, where a call's device time is near
+    its host time: fn() replayed from a CUDA graph, and the host's time to
+    issue it."""
+    return dict(graph_ms=graph_time_ms(torch, fn), host_ms=host_time_ms(torch, fn))
 
 
 def sm_clock_mhz() -> float:
@@ -281,7 +317,7 @@ def kernel_phase(torch) -> dict:
     """K1 against flash_sdpa_reference, and K2 (`k2_row`) on the same
     inputs, at every main-path shape and the checks off it."""
     import torch.nn.functional as F
-    from vexpress_torch.ops import flash, flash_tma, launches
+    from vexpress_torch.ops import flash, launches
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 case compares fp32 results
     torch.backends.cudnn.allow_tf32 = False
@@ -314,20 +350,27 @@ def kernel_phase(torch) -> dict:
         qh, kh, vh = (t.reshape(t.shape[0], t.shape[1], heads, d).transpose(1, 2).contiguous()
                       for t in (q, k, v))
         library_ms = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        extra, note = {}, ""
+        if name.startswith("reference-net"):
+            extra.update(small_shape_times(torch, lambda: flash.flash_sdpa(q, k, v, heads)))
+            lib_small = small_shape_times(
+                torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            extra.update(library_graph_ms=lib_small["graph_ms"],
+                         library_host_ms=lib_small["host_ms"])
+            note += (f", in a CUDA graph {extra['graph_ms']:.4f} ms (sdpa "
+                     f"{extra['library_graph_ms']:.4f}), host issue {extra['host_ms']:.4f} ms a "
+                     f"call (sdpa {extra['library_host_ms']:.4f})")
         del qh, kh, vh, out
-        extra = {}
         if dtype == torch.bfloat16:
-            extra["sm_clock_mhz"] = clock
-            extra["exp_floor_ms"] = exp_floor_ms(b * heads * lq * lk, clock)
-            extra["layout_ms"] = {
-                sw: cuda_time_ms(torch, lambda sw=sw: flash._launch_fwd(q, k, v, heads, d**-0.5,
-                                                                        swizzle=sw))
-                for sw in flash_tma.SWIZZLES[d]}
+            note += (f", exp floor {exp_floor_ms(b * heads * lq * lk, clock):.3f} ms at "
+                     f"{clock:.0f} MHz")
             if d == 40:
                 old = mma_sync_design(torch, q, k, v, heads)
                 old_err = float((old().float() - exact).abs().max())
                 extra.update(mma_sync_design_ms=cuda_time_ms(torch, old),
                              mma_sync_design_max_abs_err=old_err)
+                note += (f", mma.sync design {extra['mma_sync_design_ms']:.3f} ms (max|d| "
+                         f"{old_err:.3e})")
         bound_ms, bound_by = k1_bound_ms(b, lq, lk, inner, heads, torch.tensor([], dtype=dtype)
                                          .element_size(), PEAK_BF16 if dtype == torch.bfloat16
                                          else PEAK_FP32)
@@ -339,12 +382,7 @@ def kernel_phase(torch) -> dict:
         rows.append(row)
         log(f"[kernel] {name} {dtype_name} B={b} Lq={lq} Lk={lk} D={d}: max|d|={max_err:.3e} "
             f"mean|d|={mean_err:.3e} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"sdpa {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
-            + (f", exp floor {extra['exp_floor_ms']:.3f} ms at {extra['sm_clock_mhz']:.0f} MHz, "
-               f"by layout (swizzle bytes: ms) {extra['layout_ms']}" if extra else "")
-            + (f", mma.sync design {extra['mma_sync_design_ms']:.3f} ms (max|d| "
-               f"{extra['mma_sync_design_max_abs_err']:.3e})" if "mma_sync_design_ms" in extra
-               else ""))
+            f"sdpa {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}){note}")
         if not (ok and finite):
             raise PhaseError(f"K1 disagrees with its plain version at {name}: max {max_err:.3e}, "
                              f"mean {mean_err:.3e}, finite {finite} ({tol})")
@@ -388,24 +426,29 @@ def k2_row(torch, q, k, v, heads, exact, k1_row) -> dict:
         clock = sm_clock_mhz()
         plain_ms = cuda_time_ms(torch, lambda: flash.flash_lite_reference(q, k, v, heads),
                                 max_iters=5)
+        small = (small_shape_times(torch, lambda: flash.flash_sdpa(q, k, v, heads))
+                 if "graph_ms" in k1_row else {})
     finally:
         flash.FLASH_LITE = False
     k1_ms = cuda_time_ms(torch, lambda: flash.flash_sdpa(q, k, v, heads))
+    exps = b * heads * lq * lk
+    note = ""
+    if small:
+        small["k1_graph_ms"] = graph_time_ms(torch, lambda: flash.flash_sdpa(q, k, v, heads))
+        note = (f", in a CUDA graph {small['graph_ms']:.4f} ms (K1 {small['k1_graph_ms']:.4f}), "
+                f"host issue {small['host_ms']:.4f} ms a call")
     row = dict(shape=name, dtype=k1_row["dtype"], B=b, Lq=lq, Lk=lk, H=heads, D=d,
                main_path=k1_row["main_path"], kernel_ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
                library_ms=k1_row["library_ms"], bound_ms=k1_row["bound_ms"],
-               bound_by=k1_row["bound_by"], exps=b * heads * lq * lk, sm_clock_mhz=clock,
-               exp_floor_ms=exp_floor_ms(b * heads * lq * lk, clock),
-               packed_exp_floor_ms=exp_floor_ms(b * heads * lq * lk / 2, clock),
-               max_abs_err=max_err,
+               bound_by=k1_row["bound_by"], exps=exps, max_abs_err=max_err,
                mean_abs_err=mean_err, tolerance=tol, exact_max_abs_err=exact_err,
-               exact_tolerance=f"max<{K2_EXACT_BAR} vs exact fp32")
+               exact_tolerance=f"max<{K2_EXACT_BAR} vs exact fp32", **small)
     log(f"[kernel] K2 {name} {row['dtype']} B={b} Lq={lq} Lk={lk} D={d}: max|d|={max_err:.3e} "
         f"mean|d|={mean_err:.3e} vs plain, max|d|={exact_err:.3e} vs exact; kernel {ms:.3f} ms, "
         f"K1 {k1_ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {row['library_ms']:.3f} ms, bound "
-        f"{row['bound_ms']:.3f} ms ({row['bound_by']}), {row['exps']:.3e} exps, exp floor "
-        f"{row['exp_floor_ms']:.3f} ms (packed pairs {row['packed_exp_floor_ms']:.3f}) at "
-        f"{clock:.0f} MHz")
+        f"{row['bound_ms']:.3f} ms ({row['bound_by']}), {exps:.3e} exps, exp floor "
+        f"{exp_floor_ms(exps, clock):.3f} ms (packed pairs {exp_floor_ms(exps / 2, clock):.3f}) "
+        f"at {clock:.0f} MHz{note}")
     if not (ok and finite and exact_err < K2_EXACT_BAR):
         raise PhaseError(f"K2 disagrees at {name}: vs plain max {max_err:.3e} mean {mean_err:.3e} "
                          f"({tol}), vs exact max {exact_err:.3e} (<{K2_EXACT_BAR}), finite {finite}")
@@ -505,15 +548,15 @@ def grad_kernel_rows(torch, gen) -> list:
                    main_path=bf16 and (name, b, lq, lk, inner, heads) in TRAIN_K1_SHAPES,
                    fwd_ms=fwd_ms, dkv_ms=dkv_ms, dq_ms=dq_ms, plain_fwd_ms=plain_fwd_ms,
                    plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_fwd_ms,
-                   sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms, sm_clock_mhz=fwd_clock,
-                   fwd_exp_floor_ms=exp_floor_ms(b * heads * lq * lk, fwd_clock),
+                   sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
                    bounds={k_: dict(ms=ms, by=by) for k_, (ms, by) in bounds.items()},
                    errors=errs)
         rows.append(row)
         log(f"[kernel] {name} {dtype_name} B={b} Lq={lq} Lk={lk} D={d} with gradient: "
             f"fwd+lse {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f}, exp floor "
-            f"{row['fwd_exp_floor_ms']:.3f} at {fwd_clock:.0f} MHz), dk/dv {dkv_ms:.3f} ms "
-            f"(bound {bounds['dkv'][0]:.3f}), dq {dq_ms:.3f} ms (bound {bounds['dq'][0]:.3f}), "
+            f"{exp_floor_ms(b * heads * lq * lk, fwd_clock):.3f} at {fwd_clock:.0f} MHz), "
+            f"dk/dv {dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f}), dq {dq_ms:.3f} ms "
+            f"(bound {bounds['dq'][0]:.3f}), "
             f"pair bound {bounds['pair'][0]:.3f} ms; plain fwd {plain_fwd_ms:.3f} ms, plain bwd "
             f"{plain_bwd_ms:.3f} ms, sdpa fwd {sdpa_fwd_ms:.3f} ms, fwd+bwd "
             f"{sdpa_fwd_bwd_ms:.3f} ms; max|d| "
@@ -1445,8 +1488,6 @@ def kernels_line(results: dict) -> list:
     kernels = [entry("flash_fwd", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
                      "vexpress_tpu/ops/flash.py:42", fwd_parts, inf_n + train_n, sources=sources,
                      launches_by_path=dict(full=inf_n, train_full=train_n),
-                     exp_floor_ms=sum(r["exp_floor_ms"] for r in ran_fwd)
-                     + sum(r["fwd_exp_floor_ms"] for r in main_grad if r["launches"]["flash_fwd"]),
                      mma_sync_design_ms_d40=sum(r["mma_sync_design_ms"] for r in ran_fwd
                                                 if "mma_sync_design_ms" in r),
                      ms_d40=sum(r["kernel_ms"] for r in ran_fwd if "mma_sync_design_ms" in r),
@@ -1476,8 +1517,7 @@ def kernels_line(results: dict) -> list:
         [(r["kernel_ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
           r["max_abs_err"]) for r in ran], results["cli_full"]["lite_launches"],
         plain_is="flash_lite_reference", sources=sources, k1_ms=sum(r["k1_ms"] for r in ran),
-        exps=sum(r["exps"] for r in ran), exp_floor_ms=sum(r["exp_floor_ms"] for r in ran),
-        packed_exp_floor_ms=sum(r["packed_exp_floor_ms"] for r in ran),
+        exps=sum(r["exps"] for r in ran),
         launches_by_path=dict(cli_full=results["cli_full"]["lite_launches"]), shapes=lite_rows))
     av = results["attn_variants"]
     for name, source, replaces, plain_is in (

@@ -8,6 +8,8 @@ skips. On a machine with an H100:
 (`--noconftest`: tests/conftest.py sets up JAX, which such a machine may lack.)
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -73,26 +75,35 @@ def test_unsupported_head_dim_raises(dev):
 @pytest.mark.parametrize("lq,lk", [(128, 128), (192, 320)])  # one tile; trailing 64-row/key tiles
 def test_tma_kernel_tiles(dev, lq, lk, d, with_lse):
     """The bf16 kernel at one 128-row tile and at a trailing 64-row query
-    tile and 64-key tile, at every layout built for D, with and without the
-    log-sum-exp."""
+    tile and 64-key tile, with and without the log-sum-exp."""
     q, k, v = _qkv(dev, 2, lq, lk, 2 * d, torch.bfloat16, seed=d)
     ref, ref_lse = flash.flash_sdpa_reference(q.float(), k.float(), v.float(), 2, return_lse=True)
-    for sw in flash_tma.SWIZZLES[d]:
-        launches.reset()
-        out, lse = flash._launch_fwd(q, k, v, 2, d**-0.5, with_lse=with_lse, swizzle=sw)
-        torch.cuda.synchronize()
-        assert dict(launches.counts) == {"flash_fwd": 1}
-        _assert_within_bar(out, ref)
-        if with_lse:
-            assert float((lse - ref_lse).abs().max()) <= LSE_BAR, sw
-        else:
-            assert lse is None
+    launches.reset()
+    out, lse = flash._launch_fwd(q, k, v, 2, d**-0.5, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert dict(launches.counts) == {"flash_fwd": 1}
+    _assert_within_bar(out, ref)
+    if with_lse:
+        assert float((lse - ref_lse).abs().max()) <= LSE_BAR
+    else:
+        assert lse is None
+
+
+def test_library_tile_is_flash_tma_tile(dev):
+    """The library's tiling per head dim (vx_flash_fwd_tile, from
+    csrc/flash_fwd_wgmma.cuh's WgmmaTile) is ops/flash_tma.py's."""
+    lib = flash._library()
+    for d in flash_tma.SWIZZLE:
+        out = (ctypes.c_longlong * len(flash_tma.TILE_FIELDS))()
+        assert lib.vx_flash_fwd_tile(d, out) == 0
+        assert dict(zip(flash_tma.TILE_FIELDS, out)) == flash_tma.tile(d)
+    assert lib.vx_flash_fwd_tile(64, out) != 0
 
 
 def test_bf16_forward_kernels_use_wgmma_and_tma(dev):
-    """Every bf16 forward kernel in the built library (K1 at 5 layouts, K2 at
-    3) holds HGMMA (wgmma) and UTMALDG (TMA loads) in its SASS."""
+    """Every bf16 forward kernel in the built library (K1 and K2 at each of
+    the 3 head dims) holds HGMMA (wgmma) and UTMALDG (TMA loads) in its SASS."""
     ops = sass_ops(flash.build(), "flash_fwd_wgmma")
-    assert len(ops) == 8, sorted(ops)
+    assert len(ops) == 6, sorted(ops)
     for name, found in ops.items():
         assert {"HGMMA", "UTMALDG"} <= set(found), (name, found)

@@ -27,7 +27,7 @@ from vexpress_torch.ops.flash_lite import flash_lite_reference, lite_packed_exp
 SHAPES = sorted({(n, b, lq, lk, h, i // h)
                  for n, b, lq, lk, i, h, *dt in K1_SHAPES + TRAIN_K1_SHAPES + K1_EXTRA
                  + TRAIN_K1_EXTRA if not dt or dt[0] == "bfloat16"})
-LAUNCHES = [(s, sw) for s in SHAPES for sw in flash_tma.SWIZZLES[s[5]]]
+LAUNCHES = [(s, flash_tma.SWIZZLE[s[5]]) for s in SHAPES]
 
 
 def test_shapes_cover_the_paths():
@@ -38,7 +38,8 @@ def test_shapes_cover_the_paths():
 @pytest.mark.parametrize("shape,swizzle", LAUNCHES, ids=lambda x: str(x))
 def test_geometry_meets_tma_rules(shape, swizzle):
     _, b, lq, lk, h, d = shape
-    geom = flash_tma.fwd_geometry(b, lq, lk, h, d, swizzle)
+    geom = flash_tma.fwd_geometry(b, lq, lk, h, d)
+    assert geom["swizzle"] == swizzle
     assert flash_tma.tma_violations(geom) == []
     for name, length, rows in (("q", lq, 128), ("kv", lk, 128 if d == 80 else 64)):
         m = geom[name]
@@ -58,12 +59,81 @@ def test_geometry_meets_tma_rules(shape, swizzle):
 
 
 def test_default_layout_is_instantiated():
+    """One layout per head dim is built; any other swizzle is refused."""
     for d, sw in flash_tma.SWIZZLE.items():
-        assert sw in flash_tma.SWIZZLES[d]
-        assert not flash_tma.tma_violations(flash_tma.fwd_geometry(1, 128, 128, 8, d), lite=True)
-    other = flash_tma.fwd_geometry(1, 128, 128, 8, 40, 32)  # K1's other layout, not K2's
-    assert not flash_tma.tma_violations(other)
-    assert flash_tma.tma_violations(other, lite=True)
+        geom = flash_tma.fwd_geometry(1, 128, 128, 8, d)
+        assert geom["swizzle"] == sw and not flash_tma.tma_violations(geom)
+        for other in {32, 64, 128} - {sw}:
+            assert any("no instantiation" in m
+                       for m in flash_tma.tma_violations(dict(geom, swizzle=other)))
+
+
+@pytest.mark.parametrize("d", sorted(flash_tma.SWIZZLE))
+def test_tile_is_the_launch_geometry(d):
+    """`tile` (what the library's vx_flash_fwd_tile must report) is what
+    fwd_geometry hands the kernel: box columns and rows, shared memory."""
+    t = flash_tma.tile(d)
+    assert tuple(t) == flash_tma.TILE_FIELDS
+    geom = flash_tma.fwd_geometry(2, 256, 256, 8, d)
+    assert t["swizzle"] == geom["swizzle"] and t["box_cols"] * 2 == t["swizzle"]
+    assert geom["q"]["box"] == (t["box_cols"], 1, t["tile_q"], 1)
+    assert geom["kv"]["box"] == (t["box_cols"], 1, t["tile_k"], 1)
+    assert geom["smem"] == t["smem"] and geom["threads"] == t["threads"]
+    arg = list(flash_tma.geometry_arg(geom))
+    assert arg[:4] == [t["swizzle"], t["box_cols"], t["tile_q"], t["tile_k"]]
+
+
+class _FakeTileLibrary:
+    """Stands in for the built library's vx_flash_fwd_tile."""
+
+    def __init__(self, tiles):
+        self.tiles, self.calls = tiles, 0
+
+    def vx_flash_fwd_tile(self, d, out):
+        self.calls += 1
+        if d not in self.tiles:
+            return 1  # cudaErrorInvalidValue: no instantiation
+        for i, name in enumerate(flash_tma.TILE_FIELDS):
+            out[i] = self.tiles[d][name]
+        return 0
+
+
+@pytest.fixture
+def fresh_tile_checks(monkeypatch):
+    monkeypatch.setattr(flash, "_tiles_checked", set())
+
+
+def test_tile_check_passes_once_per_head_dim(fresh_tile_checks):
+    lib = _FakeTileLibrary({d: flash_tma.tile(d) for d in flash_tma.SWIZZLE})
+    for d in (40, 40, 80):
+        flash._check_tile(lib, d)
+    assert lib.calls == 2 and flash._tiles_checked == {40, 80}
+
+
+def test_tile_check_leaves_unbuilt_head_dims_to_the_launch(fresh_tile_checks):
+    flash._check_tile(_FakeTileLibrary({}), 64)
+    assert not flash._tiles_checked
+
+
+@pytest.mark.parametrize("field", flash_tma.TILE_FIELDS)
+def test_tile_check_names_a_mismatch(fresh_tile_checks, field):
+    """A library built to another tiling than flash_tma's raises before any
+    launch, for each field of the tile."""
+    built = dict(flash_tma.tile(80))
+    built[field] += 16
+    with pytest.raises(RuntimeError, match="the library's tiling"):
+        flash._check_tile(_FakeTileLibrary({80: built}), 80)
+    assert not flash._tiles_checked
+
+
+def test_launch_geometry_is_cached_and_checked():
+    flash._tma_geometry.cache_clear()
+    first = flash._tma_geometry(48, 4096, 4096, 8, 40)
+    assert flash._tma_geometry(48, 4096, 4096, 8, 40) is first
+    assert list(first) == list(flash_tma.geometry_arg(flash_tma.fwd_geometry(48, 4096, 4096, 8,
+                                                                               40)))
+    with pytest.raises(ValueError, match="no instantiation for D=64"):
+        flash._tma_geometry(1, 128, 128, 2, 64)
 
 
 @pytest.mark.parametrize("change,message", [
@@ -78,7 +148,7 @@ def test_default_layout_is_instantiated():
     (dict(grid=(32, 70000)), "grid y"),
 ])
 def test_violations_are_named(change, message):
-    geom = dict(flash_tma.fwd_geometry(48, 4096, 4096, 8, 40, 128), **change)
+    geom = dict(flash_tma.fwd_geometry(48, 4096, 4096, 8, 40), **change)
     bad = flash_tma.tma_violations(geom)
     assert bad and any(message in m for m in bad), bad
 

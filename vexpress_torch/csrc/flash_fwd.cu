@@ -62,6 +62,8 @@
 
 #include <stdio.h>
 
+#include <atomic>
+
 #include "flash_fwd_wgmma.cuh"
 
 namespace {
@@ -192,8 +194,9 @@ template <int D, bool LITE, int SW>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int H, int Lq,
                  int Lk, const long long* geom, float scale, cudaStream_t s) {
   using T = WgmmaTile<D, SW>;
-  if (geom[1] != T::CW || geom[2] != WG_BQ || geom[3] != T::BK || geom[6] != T::SMEM ||
-      geom[4] != (Lq + WG_BQ - 1) / WG_BQ || geom[5] <= 0 || geom[5] > 65535)
+  if (geom[0] != SW || geom[1] != T::CW || geom[2] != WG_BQ || geom[3] != T::BK ||
+      geom[6] != T::SMEM || geom[4] != (Lq + WG_BQ - 1) / WG_BQ || geom[5] <= 0 ||
+      geom[5] > 65535)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   int rc = encode(&tq, q, geom + 7, geom + 11, T::CW, WG_BQ, SW);
@@ -201,31 +204,34 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   if (rc == 0) rc = encode(&tv, v, geom + 14, geom + 18, T::CW, T::BK, SW);
   if (rc != 0) return rc;
   const auto kernel = flash_fwd_wgmma<D, LITE, SW>;
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-  if (attr != cudaSuccess) return (int)attr;
+  // the shared-memory limit is set once per device and instantiation (bit dev)
+  static std::atomic<unsigned long long> smem_set{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(smem_set.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set.fetch_or(bit, std::memory_order_relaxed);
+  }
   kernel<<<dim3((unsigned)geom[4], (unsigned)geom[5]), WG_THREADS, T::SMEM, s>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, scale);
   return (int)cudaGetLastError();
 }
 
-// the (D, swizzle) instantiations: K1 at both layouts of D=40 and D=80, K2
-// at the wrapper's default (ops/flash_tma.py: SWIZZLES, SWIZZLE)
-#define VX_WGMMA_K1(X) X(40, 32) X(40, 128) X(80, 32) X(80, 128) X(160, 64)
-#define VX_WGMMA_K2(X) X(40, 128) X(80, 128) X(160, 64)
+// the (D, swizzle bytes) instantiations, K1's and K2's: 128-byte swizzle at
+// D=40 and D=80 (faster than 32-byte, PERF.md), 64-byte at D=160. The
+// wrapper's table is ops/flash_tma.py::SWIZZLE; `vx_flash_fwd_tile` lets it
+// check that the two agree.
+#define VX_WGMMA(X) X(40, 128) X(80, 128) X(160, 64)
 
 template <bool LITE>
 int forward_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int H, int Lq,
                  int Lk, int D, const long long* geom, float scale, cudaStream_t s) {
-  const int sw = (int)geom[0];
 #define VX_CASE(D_, SW_) \
-  if (D == D_ && sw == SW_)  \
-    return launch_wgmma<D_, LITE, SW_>(q, k, v, o, lse, H, Lq, Lk, geom, scale, s);
-  if constexpr (LITE) {
-    VX_WGMMA_K2(VX_CASE)
-  } else {
-    VX_WGMMA_K1(VX_CASE)
-  }
+  if (D == D_) return launch_wgmma<D_, LITE, SW_>(q, k, v, o, lse, H, Lq, Lk, geom, scale, s);
+  VX_WGMMA(VX_CASE)
 #undef VX_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -282,6 +288,24 @@ int vx_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void*
   VX_SIMT(80)
   VX_SIMT(160)
 #undef VX_SIMT
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tiling of the bf16 kernel at head dim D, in the order of
+// ops/flash_tma.py::TILE_FIELDS: swizzle bytes, box columns, query rows and
+// keys per tile, blocks per SM, dynamic shared memory bytes, threads, K/V
+// stages. Returns cudaErrorInvalidValue for a D with no instantiation.
+int vx_flash_fwd_tile(int D, long long* out) {
+#define VX_TILE(D_, SW_)                                                                     \
+  if (D == D_) {                                                                             \
+    using T = WgmmaTile<D_, SW_>;                                                            \
+    const long long t[8] = {SW_, T::CW, WG_BQ, T::BK, T::MINB, T::SMEM, WG_THREADS,          \
+                            T::STAGES};                                                      \
+    for (int i = 0; i < 8; ++i) out[i] = t[i];                                               \
+    return 0;                                                                                \
+  }
+  VX_WGMMA(VX_TILE)
+#undef VX_TILE
   return (int)cudaErrorInvalidValue;
 }
 

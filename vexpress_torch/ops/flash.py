@@ -27,6 +27,7 @@ CPU. K2 has no backward, so it is for inference processes only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -118,6 +119,8 @@ def _library():
             p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
             lib.vx_flash_fwd_tma.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, f, p]
             lib.vx_flash_fwd_tma.restype = i
+            lib.vx_flash_fwd_tile.argtypes = [i, p]
+            lib.vx_flash_fwd_tile.restype = i
             lib.vx_flash_fwd_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                              ll, ll, ll, ll, ll, ll, ll, ll, f, p]
             lib.vx_flash_fwd_f32.restype = i
@@ -264,30 +267,57 @@ def _dtype_code(t: torch.Tensor) -> int:
     return 1 if t.dtype == torch.bfloat16 else 0
 
 
-def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool = False, lite: bool = False,
-                swizzle: Optional[int] = None):
+_tiles_checked = set()
+
+
+def _check_tile(lib, d: int) -> None:
+    """Before the first bf16 launch at head dim d: the library's tiling
+    (`vx_flash_fwd_tile`) must be flash_tma's, from which the launch geometry
+    is computed. A d with no instantiation is left to the launch to refuse."""
+    if d in _tiles_checked:
+        return
+    out = (ctypes.c_longlong * len(flash_tma.TILE_FIELDS))()
+    if lib.vx_flash_fwd_tile(d, out) != 0:
+        return
+    built, host = dict(zip(flash_tma.TILE_FIELDS, out)), flash_tma.tile(d)
+    if built != host:
+        raise RuntimeError(f"flash forward at D={d}: the library's tiling {built} is not "
+                           f"ops/flash_tma.py's {host}")
+    _tiles_checked.add(d)
+
+
+@functools.lru_cache(maxsize=256)
+def _tma_geometry(b: int, lq: int, lk: int, heads: int, d: int):
+    """flash_tma's geometry of one bf16 launch, as `vx_flash_fwd_tma` reads
+    it, once per shape; raises where TMA or the kernel cannot take it."""
+    geom = flash_tma.fwd_geometry(b, lq, lk, heads, d)
+    bad = flash_tma.tma_violations(geom)
+    if bad:
+        raise ValueError("flash forward kernel cannot take this launch: " + "; ".join(bad))
+    return flash_tma.geometry_arg(geom)
+
+
+def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool = False, lite: bool = False):
     """csrc/flash_fwd.cu on the current stream: K1, or K2 with `lite`; bf16
-    through the TMA/wgmma kernel at `swizzle` (default flash_tma.SWIZZLE),
-    fp32 through the scalar kernel. Returns (out, lse or None)."""
+    through the TMA/wgmma kernel, fp32 through the scalar kernel. Returns
+    (out, lse or None)."""
     _check_kernel_inputs(heads, q=q, k=k, v=v)
     b, lq, inner = q.shape
     lk, d = k.shape[1], inner // heads
-    geom = None
-    if q.dtype == torch.bfloat16:
-        geom = flash_tma.fwd_geometry(b, lq, lk, heads, d, swizzle)
-        bad = flash_tma.tma_violations(geom, lite)
-        if bad:
-            raise ValueError("flash forward kernel cannot take this launch: " + "; ".join(bad))
+    bf16 = q.dtype == torch.bfloat16
+    geom = _tma_geometry(b, lq, lk, heads, d) if bf16 else None
     lib = _library()
+    if bf16:
+        _check_tile(lib, d)
     out = torch.empty_like(q)
     lse = (torch.empty((b, heads, lq), dtype=torch.float32, device=q.device) if with_lse
            else None)
     lse_ptr = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
-        if geom is not None:
+        if bf16:
             rc = lib.vx_flash_fwd_tma(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      lse_ptr, int(lite), b, heads, lq, lk, d,
-                                      flash_tma.geometry_arg(geom), float(scale), _stream(q))
+                                      lse_ptr, int(lite), b, heads, lq, lk, d, geom,
+                                      float(scale), _stream(q))
         else:
             rc = lib.vx_flash_fwd_f32(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, int(lite), b,

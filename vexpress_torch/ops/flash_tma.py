@@ -2,33 +2,37 @@
 (K1 and K2 on the card): the TMA tensor maps, the padded head dim, the grid
 and the shared memory of one launch. `flash.py` passes it to
 `vx_flash_fwd_tma` (csrc/flash_fwd.cu), which encodes the maps from it; the
-CPU tests hold it to TMA's rules at every main-path shape.
+CPU tests hold it to TMA's rules at every main-path shape. `tile` is the
+tiling per head dim that csrc/flash_fwd_wgmma.cuh's WgmmaTile also sets; the
+library reports its own through `vx_flash_fwd_tile`, and flash.py checks the
+two against each other before a head dim's first launch.
 
 Each of q, k, v (B, L, H*D), contiguous, is viewed as a 4-D tensor (D, H, L,
 B) with element strides (1, D, H*D, L*H*D), so one (batch, head)'s tile of
 rows is one box. A box is (CW, 1, rows, 1): CW = swizzle / 2 bf16 columns,
-128 rows of q, `tile_k` rows of k and v. The kernel cuts the head dim into ceil(NV / CW) such
-chunks, NV = D rounded up to the wgmma depth 16; TMA reads zeros past D.
+128 rows of q, `tile_k` rows of k and v. The kernel cuts the head dim into
+ceil(NV / CW) such chunks, NV = D rounded up to the wgmma depth 16; TMA reads zeros past D.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
+from typing import List
 
 TILE_Q = 128  # query rows per block: two consumer warpgroups of 64
 STAGES = 3  # K/V stages of the ring
 THREADS = 384  # two consumer warpgroups and the producer's
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
 ELEM = 2  # bf16
-# swizzle span in bytes by head dim, the faster layout on an H100 (PERF.md):
-# at D=40 one 64-column chunk (128 B) against three of 16 columns (32 B), at
-# D=80 two 64-column chunks against five of 16; D=160 takes five 32-column
-# chunks (64 B). K1 is also built at the other layout of D=40 and D=80
-# (`SWIZZLES`), which chip_smoke.py's kernel phase times beside the default;
-# K2 at the default only.
+# swizzle span in bytes by head dim (csrc/flash_fwd.cu's VX_WGMMA): at D=40
+# one 64-column chunk and at D=80 two, 128-byte swizzle, which beat 32-byte
+# swizzle's three or five 16-column chunks on an H100 (PERF.md); D=160 takes
+# five 32-column chunks (64 B)
 SWIZZLE = {40: 128, 80: 128, 160: 64}
-SWIZZLES = {40: (32, 128), 80: (32, 128), 160: (64,)}
+# what `tile` returns, in the order of csrc/flash_fwd.cu::vx_flash_fwd_tile,
+# through which flash.py checks that the library was built to this table
+TILE_FIELDS = ("swizzle", "box_cols", "tile_q", "tile_k", "blocks_per_sm", "smem", "threads",
+               "stages")
 
 
 def padded_head_dim(d: int) -> int:
@@ -57,35 +61,41 @@ def smem_bytes(d: int, swizzle: int) -> int:
     return q + 2 * STAGES * kv + 8 * (2 * STAGES + 1) + 1024
 
 
+def tile(d: int) -> dict:
+    """The kernel's tiling at head dim d, keyed by TILE_FIELDS (a head dim
+    with no instantiation gets 128-byte swizzle, which `tma_violations` then
+    names)."""
+    sw = SWIZZLE.get(d, 128)
+    return dict(swizzle=sw, box_cols=sw // 2, tile_q=TILE_Q, tile_k=tile_k(d),
+                blocks_per_sm=blocks_per_sm(d), smem=smem_bytes(d, sw), threads=THREADS,
+                stages=STAGES)
+
+
 def _tensor_map(b: int, length: int, heads: int, d: int, rows: int, swizzle: int) -> dict:
     return dict(dims=(d, heads, length, b),
                 strides=(d * ELEM, heads * d * ELEM, length * heads * d * ELEM),
                 box=(swizzle // 2, 1, rows, 1))
 
 
-def fwd_geometry(b: int, lq: int, lk: int, heads: int, d: int,
-                 swizzle: Optional[int] = None) -> dict:
-    """Everything the host sets for one launch of the bf16 forward kernel. A
-    head dim with no instantiation gets 128-byte swizzle, which
-    `tma_violations` then names."""
-    sw = SWIZZLE.get(d, 128) if swizzle is None else swizzle
-    cw = sw // 2
+def fwd_geometry(b: int, lq: int, lk: int, heads: int, d: int) -> dict:
+    """Everything the host sets for one launch of the bf16 forward kernel."""
+    t = tile(d)
+    sw, cw = t["swizzle"], t["box_cols"]
     nv = padded_head_dim(d)
     chunks = -(-nv // cw)
     return dict(swizzle=sw, head_dim=d, padded_head_dim=nv, chunks=chunks,
                 smem_head_dim=chunks * cw,
                 q=_tensor_map(b, lq, heads, d, TILE_Q, sw),
-                kv=_tensor_map(b, lk, heads, d, tile_k(d), sw),
-                grid=(-(-lq // TILE_Q), b * heads), threads=THREADS, smem=smem_bytes(d, sw))
+                kv=_tensor_map(b, lk, heads, d, t["tile_k"], sw),
+                grid=(-(-lq // TILE_Q), b * heads), threads=THREADS, smem=t["smem"])
 
 
-def tma_violations(geom: dict, lite: bool = False) -> List[str]:
-    """What breaks cuTensorMapEncodeTiled's rules or the kernel's limits (K2's
-    with `lite`), as messages (none for a launch the kernel can take)."""
+def tma_violations(geom: dict) -> List[str]:
+    """What breaks cuTensorMapEncodeTiled's rules or the kernel's limits, as
+    messages (none for a launch the kernel can take)."""
     bad = []
     sw = geom["swizzle"]
-    built = SWIZZLES if not lite else {d: (s,) for d, s in SWIZZLE.items()}
-    if sw not in built.get(geom["head_dim"], ()):
+    if SWIZZLE.get(geom["head_dim"]) != sw:
         bad.append(f"no instantiation for D={geom['head_dim']} at swizzle {sw}")
     for name in ("q", "kv"):
         m = geom[name]
@@ -115,4 +125,3 @@ def geometry_arg(geom: dict):
     vals = [geom["swizzle"], q["box"][0], q["box"][2], kv["box"][2], *geom["grid"],
             geom["smem"], *q["dims"], *q["strides"], *kv["dims"], *kv["strides"]]
     return (ctypes.c_longlong * len(vals))(*vals)
-
