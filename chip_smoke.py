@@ -6,14 +6,16 @@
 Phases, in order; any failure raises and the script exits non-zero:
   card          the card's name and power limit (nvidia-smi)
   build         nvcc builds every kernel from the sources in the checkout
-  sass          the bf16 forward kernels' SASS holds HGMMA (wgmma) and
-                UTMALDG (TMA loads)
+  sass          the bf16 forward and backward kernels' SASS holds HGMMA
+                (wgmma), UTMALDG (TMA loads) and MUFU.EX2
   kernel        each kernel at the main paths' shapes against its plain
                 version: K1's forward and K2 (VEXPRESS_FLASH_LITE's bf16-exp
                 forward, also against exact fp32 attention) at the inference
-                shapes; at the training shapes K1 with its gradient (forward
-                with log-sum-exp, dk/dv and dq kernels) through
-                FlashAttention; times of each kernel, its plain version, one
+                shapes; at the training shapes of stage 2 and stage 3 K1
+                with its gradient (forward with log-sum-exp, dk/dv and dq
+                kernels) through FlashAttention, with SDPA's backward alone
+                and the di reduction timed beside them and stage 3's
+                backward launches reckoned; times of each kernel, its plain version, one
                 PyTorch library call (a yardstick only), K1 beside K2 on the
                 same inputs, K1's mma.sync design (T1's kernel at K1's old
                 tiling) on the same inputs at D=40, and the card's bound; at
@@ -101,6 +103,18 @@ TRAIN_K1_SHAPES = [
     ("train attn1_5@64x64 grouped", 1, TRAIN_FRAMES * 4096, 4096, 320, 8),
     ("train attn1@32x32", TRAIN_FRAMES, 1024, 1024, 640, 8),
     ("train attn1_5@32x32 grouped", 1, TRAIN_FRAMES * 1024, 1024, 640, 8),
+]
+# the same at stage 3 (configs/stage_3.yaml: 8 frames, every module trains,
+# so attn1_5 runs the dk/dv kernel and the reference net's attn1 both
+# kernels); not run end to end at full width, its launches are reckoned
+STAGE3_FRAMES = 8
+STAGE3_K1_SHAPES = [
+    ("stage 3 attn1@64x64", STAGE3_FRAMES, 4096, 4096, 320, 8),
+    ("stage 3 attn1_5@64x64 grouped", 1, STAGE3_FRAMES * 4096, 4096, 320, 8),
+    ("stage 3 attn1@32x32", STAGE3_FRAMES, 1024, 1024, 640, 8),
+    ("stage 3 attn1_5@32x32 grouped", 1, STAGE3_FRAMES * 1024, 1024, 640, 8),
+    ("stage 3 reference-net attn1@64x64", 1, 4096, 4096, 320, 8),
+    ("stage 3 reference-net attn1@32x32", 1, 1024, 1024, 640, 8),
 ]
 # off the training path: fp32 at the train_parity phase's head dim, and D=160
 TRAIN_K1_EXTRA = [
@@ -215,19 +229,35 @@ def mma_sync_design(torch, q, k, v, heads):
     return run
 
 
+# WARPGROUP.DEPBAR lines in the SASS of each bf16 wgmma kernel, forward and
+# backward: its fixed `wgmma_wait`s as ptxas lays them out on every path (5,
+# against 14-36 HGMMA; read on the H100). One more is a wgmma it serialised.
+WGMMA_WAITS = 5
+
+
 def sass_phase() -> dict:
-    """The built library's bf16 forward kernels (flash_fwd_wgmma) hold HGMMA
-    and UTMALDG in their SASS, and their exps are on MUFU.EX2."""
+    """The built library's bf16 wgmma kernels (the forward, flash_fwd_wgmma,
+    and the backward pair, flash_bwd_dkv_wgmma and flash_bwd_dq_wgmma) hold
+    HGMMA and UTMALDG in their SASS, their exps are on MUFU.EX2, and each
+    holds no more WARPGROUP.DEPBAR than the fixed waits its code issues
+    (ptxas adds one after every wgmma it serialises)."""
     from vexpress_torch.ops import flash
     from vexpress_torch.tools.ptxas_report import sass_ops
 
-    ops = sass_ops(flash.build(), "flash_fwd_wgmma")
-    ok = bool(ops) and all({"HGMMA", "UTMALDG", "MUFU.EX2"} <= set(o) for o in ops.values())
-    log(f"[sass] {len(ops)} bf16 forward kernels (flash_fwd_wgmma), HGMMA and UTMALDG in each: "
-        f"{ok}; " + "; ".join(f"{n}: {' '.join(o)}" for n, o in sorted(ops.items())))
+    lib = flash.build()
+    want = {"flash_fwd_wgmma": 6, "flash_bwd_dkv_wgmma": 2, "flash_bwd_dq_wgmma": 2}
+    found = {part: sass_ops(lib, part) for part in want}
+    ok = all(len(found[p]) == n and all({"HGMMA", "UTMALDG", "MUFU.EX2"} <= set(o)
+                                        and o["WARPGROUP.DEPBAR"] <= WGMMA_WAITS
+                                        for o in found[p].values()) for p, n in want.items())
+    for part, ops in found.items():
+        log(f"[sass] {len(ops)} bf16 kernels {part}, HGMMA, UTMALDG and MUFU.EX2 in each and "
+            f"at most {WGMMA_WAITS} WARPGROUP.DEPBAR: {ok}; "
+            + "; ".join(f"{n}: {dict(sorted(o.items()))}" for n, o in sorted(ops.items())))
     if not ok:
-        raise PhaseError(f"the bf16 forward kernels lack wgmma or TMA in their SASS: {ops}")
-    return dict(kernels=ops)
+        raise PhaseError(f"a bf16 wgmma kernel lacks wgmma, TMA or ex2 in its SASS, or holds "
+                         f"more than {WGMMA_WAITS} wgmma waits: {found}")
+    return dict(kernels={n: dict(o) for ops in found.values() for n, o in ops.items()})
 
 
 def bound_ms(ops: float, nbytes: float, peak: float):
@@ -455,18 +485,57 @@ def k2_row(torch, q, k, v, heads, exact, k1_row) -> dict:
     return row
 
 
-def grad_kernel_rows(torch, gen) -> list:
-    """K1 with its gradient at every training shape: flash_sdpa on inputs that
-    require a gradient (FlashAttention), .backward with a fixed do; the
-    forward's output and log-sum-exp and dq, dk, dv against the fp32 plain
-    versions; then each kernel timed alone."""
+def stage3_bwd_launches() -> dict:
+    """K1's backward launches of one stage-3 train step at 512x512 (latent
+    64x64) on the SD1.5 geometry, by (kernel, B, Lq, Lk, D), reckoned by
+    `expected_bwd_launches` from stage 3's trainability."""
+    from vexpress_torch.models.unet_3d import UNetConfig
+    from vexpress_torch.train import TrainConfig
+
+    return expected_bwd_launches(TrainConfig.stage("stage_3", num_frames=STAGE3_FRAMES),
+                                 UNetConfig(), 64, 64, STAGE3_FRAMES)
+
+
+def bwd_kernel_times(torch, q, k, v, do, out, lse, heads) -> dict:
+    """K1's backward at one shape of packed (B, L, H*D) inputs, each part
+    timed alone: the dk/dv kernel, the dq kernel, the plain di reduction
+    (`flash.bwd_di`) and, as a yardstick, SDPA's backward alone from one saved
+    forward (its own di included). `out` and `lse` are K1's forward's."""
     import torch.nn.functional as F
-    from vexpress_torch.ops import flash, launches
+    from vexpress_torch.ops import flash
+
+    d = q.shape[-1] // heads
+    scale = d**-0.5
+    di = flash.bwd_di(do, out, heads)
+    times = dict(
+        di_ms=cuda_time_ms(torch, lambda: flash.bwd_di(do, out, heads)),
+        dkv_ms=cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
+                                                            need_dq=False)),
+        dq_ms=cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
+                                                           need_dkv=False)))
+    qh, kh, vh, doh = (x.reshape(x.shape[0], x.shape[1], heads, d).transpose(1, 2).contiguous()
+                       for x in (q, k, v, do))
+    qh, kh, vh = (x.requires_grad_() for x in (qh, kh, vh))
+    saved = F.scaled_dot_product_attention(qh, kh, vh)
+    times["sdpa_bwd_ms"] = cuda_time_ms(
+        torch, lambda: torch.autograd.grad(saved, (qh, kh, vh), doh, retain_graph=True))
+    return times
+
+
+def grad_kernel_rows(torch, gen) -> list:
+    """K1 with its gradient at every training shape of stages 2 and 3:
+    flash_sdpa on inputs that require a gradient (FlashAttention), .backward
+    with a fixed do; the forward's output and log-sum-exp and dq, dk, dv
+    against the fp32 plain versions; then each kernel timed alone, beside the
+    di reduction and SDPA's backward alone."""
+    import torch.nn.functional as F
+    from vexpress_torch.ops import flash, flash_tma, launches
 
     dev = torch.device("cuda")
     rows = []
-    cases = ([(n, b, lq, lk, i, h, "bfloat16") for n, b, lq, lk, i, h in TRAIN_K1_SHAPES]
-             + TRAIN_K1_EXTRA)
+    stage3 = stage3_bwd_launches()
+    cases = ([(n, b, lq, lk, i, h, "bfloat16") for n, b, lq, lk, i, h in TRAIN_K1_SHAPES
+              + STAGE3_K1_SHAPES] + TRAIN_K1_EXTRA)
     for name, b, lq, lk, inner, heads, dtype_name in cases:
         dtype = getattr(torch, dtype_name)
         bf16 = dtype == torch.bfloat16
@@ -480,8 +549,12 @@ def grad_kernel_rows(torch, gen) -> list:
         out.backward(do)
         torch.cuda.synchronize()
         ran = {key: n for key, n in launches.counts.items() if n}
-        if out.grad_fn is None or ran != {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}:
-            raise PhaseError(f"{name}: flash_sdpa under a gradient launched {ran}")
+        parts = flash_tma.dkv_splits(b, heads, lq, lk) if bf16 and d in flash_tma.BWD_SWIZZLE else 1
+        want = {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+        if parts > 1:
+            want["flash_bwd_dkv_sum"] = 1
+        if out.grad_fn is None or ran != want:
+            raise PhaseError(f"{name}: flash_sdpa under a gradient launched {ran}, not {want}")
         with torch.no_grad():
             no_grad_out = flash.flash_sdpa(q, k, v, heads)
         if not torch.equal(no_grad_out, out.detach()):
@@ -520,13 +593,9 @@ def grad_kernel_rows(torch, gen) -> list:
             raise PhaseError(f"K1's gradient disagrees with its plain version at {name}: "
                              + "; ".join(fails))
 
-        di = flash.bwd_di(do, out_k, heads)
         fwd_ms = cuda_time_ms(torch, lambda: flash.flash_sdpa_fwd(q, k, v, heads, scale))
         fwd_clock = sm_clock_mhz()
-        dkv_ms = cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
-                                                              need_dq=False))
-        dq_ms = cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
-                                                             need_dkv=False))
+        bwd = bwd_kernel_times(torch, q, k, v, do, out_k, lse, heads)
         plain_fwd_ms = cuda_time_ms(
             torch, lambda: flash.flash_sdpa_reference(q, k, v, heads, return_lse=True),
             max_iters=3)
@@ -540,26 +609,35 @@ def grad_kernel_rows(torch, gen) -> list:
             torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), doh)
 
         sdpa_fwd_bwd_ms = cuda_time_ms(torch, sdpa_fwd_bwd)
-        del qh, kh, vh, doh, di
+        del qh, kh, vh, doh
         bounds = k1_grad_bounds(b, lq, lk, inner, heads, q.element_size(),
                                 PEAK_BF16 if bf16 else PEAK_FP32)
         del q, k, v, do, out_k, lse
+        key = (b, lq, lk, d)
         row = dict(shape=name, dtype=dtype_name, B=b, Lq=lq, Lk=lk, H=heads, D=d,
                    main_path=bf16 and (name, b, lq, lk, inner, heads) in TRAIN_K1_SHAPES,
-                   fwd_ms=fwd_ms, dkv_ms=dkv_ms, dq_ms=dq_ms, plain_fwd_ms=plain_fwd_ms,
-                   plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_fwd_ms,
-                   sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
+                   stage=3 if (name, b, lq, lk, inner, heads) in STAGE3_K1_SHAPES else 2,
+                   dkv_parts=parts, fwd_ms=fwd_ms, **bwd,
+                   plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+                   sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
                    bounds={k_: dict(ms=ms, by=by) for k_, (ms, by) in bounds.items()},
                    errors=errs)
         rows.append(row)
+        # stage 3's launches are reckoned, not run: the log line has them and
+        # the row (which the kernels line prints) has not
+        reckoned = {kernel: stage3.get((kernel,) + key, 0)
+                    for kernel in ("flash_bwd_dkv", "flash_bwd_dq")}
         log(f"[kernel] {name} {dtype_name} B={b} Lq={lq} Lk={lk} D={d} with gradient: "
             f"fwd+lse {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f}, exp floor "
             f"{exp_floor_ms(b * heads * lq * lk, fwd_clock):.3f} at {fwd_clock:.0f} MHz), "
-            f"dk/dv {dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f}), dq {dq_ms:.3f} ms "
-            f"(bound {bounds['dq'][0]:.3f}), "
-            f"pair bound {bounds['pair'][0]:.3f} ms; plain fwd {plain_fwd_ms:.3f} ms, plain bwd "
+            f"dk/dv {bwd['dkv_ms']:.3f} ms in {parts} part(s) (bound {bounds['dkv'][0]:.3f}), "
+            f"dq {bwd['dq_ms']:.3f} ms (bound {bounds['dq'][0]:.3f}), di {bwd['di_ms']:.3f} ms, "
+            f"pair bound {bounds['pair'][0]:.3f} ms; sdpa bwd alone {bwd['sdpa_bwd_ms']:.3f} ms; "
+            f"plain fwd {plain_fwd_ms:.3f} ms, plain bwd "
             f"{plain_bwd_ms:.3f} ms, sdpa fwd {sdpa_fwd_ms:.3f} ms, fwd+bwd "
-            f"{sdpa_fwd_bwd_ms:.3f} ms; max|d| "
+            f"{sdpa_fwd_bwd_ms:.3f} ms"
+            + (f"; stage-3 launches a step (reckoned) {reckoned}" if row["stage"] == 3 else "")
+            + "; max|d| "
             + ", ".join(f"{w_} {e['max_abs_err']:.2e}" for w_, e in errs.items())
             + "; mean|d| " + ", ".join(f"{w_} {e['mean_abs_err']:.2e}" for w_, e in errs.items()
                                        if "mean_abs_err" in e)
@@ -1458,6 +1536,8 @@ def kernels_line(results: dict) -> list:
     for r in fwd_rows:
         r["launches"] = inf_by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
     for r in grad_rows:
+        if r["stage"] != 2:  # train_full runs stage 2 only
+            continue
         key = (r["B"], r["Lq"], r["Lk"], r["D"])
         r["launches"] = dict(flash_fwd=train_fwd.get(key, 0),
                              flash_bwd_dkv=train_bwd.get(("flash_bwd_dkv",) + key, 0),
@@ -1495,17 +1575,25 @@ def kernels_line(results: dict) -> list:
     for name, key, grads, lib_line in (
             ("flash_bwd_dkv", "dkv", ("dk", "dv"), ":941 _flash_attention_bwd_dkv"),
             ("flash_bwd_dq", "dq", ("dq",), ":1287 _flash_attention_bwd_dq")):
-        parts = [(r[f"{key}_ms"], r["plain_bwd_ms"], r["sdpa_fwd_bwd_ms"], r["bounds"][key]["ms"],
+        parts = [(r[f"{key}_ms"], r["plain_bwd_ms"], r["sdpa_bwd_ms"], r["bounds"][key]["ms"],
                   r["bounds"][key]["by"], max(r["errors"][g]["max_abs_err"] for g in grads))
                  for r in main_grad if r["launches"][name]]
+        extra = {}
+        if name == "flash_bwd_dkv":
+            extra["split_sum_launches"] = results["train_full"]["launches"].get(
+                "flash_bwd_dkv_sum", 0)
         kernels.append(entry(
-            name, "vexpress_torch/csrc/flash_bwd.cu",
+            name, "vexpress_torch/csrc/flash_bwd_wgmma.cuh",
             "vexpress_tpu/ops/flash.py:93, which reaches the library's "
-            "jax/experimental/pallas/ops/tpu/flash_attention.py" + lib_line, parts, results["train_full"]["launches"].get(name, 0),
+            "jax/experimental/pallas/ops/tpu/flash_attention.py" + lib_line, parts,
+            results["train_full"]["launches"].get(name, 0),
+            sources=["vexpress_torch/csrc/flash_bwd_wgmma.cuh (bf16, D=40 and 80)",
+                     "vexpress_torch/csrc/flash_bwd.cu (launch, split sum, D=160, fp32)"],
             plain_is="flash_sdpa_bwd_reference (dq, dk and dv at once)",
-            library_is="scaled_dot_product_attention forward + backward",
+            library_is="scaled_dot_product_attention's backward alone (dq, dk and dv at "
+                       "once, its own di included), from one saved forward",
             pair_bound_ms=sum(r["bounds"]["pair"]["ms"] for r in main_grad),
-            shapes=grad_rows))
+            shapes=grad_rows, **extra))
     cli_by_shape = {tuple(key): n for *key, n in results["cli_full"]["lite_launches_by_shape"]}
     lite_rows = results["kernel"]["lite_rows"]
     for r in lite_rows:

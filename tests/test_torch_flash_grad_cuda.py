@@ -1,18 +1,24 @@
 """K1 with a gradient on the card: the forward with its log-sum-exp and the
-backward kernels (vexpress_torch/csrc/flash_bwd.cu) against their plain
-versions, and `flash_sdpa` on CUDA inputs that require a gradient. Marked
-`cuda`: without a CUDA device every test skips. On a machine with an H100:
+backward kernels (vexpress_torch/csrc/flash_bwd.cu; bf16 at D=40 and 80
+through csrc/flash_bwd_wgmma.cuh) against their plain versions, and
+`flash_sdpa` on CUDA inputs that require a gradient; the wgmma backward at
+trailing 64-row tiles, with the query axis split, launched twice (bitwise
+equal), and its SASS. Marked `cuda`: without a CUDA device every test skips.
+On a machine with an H100:
 
     python -m pytest tests/test_torch_flash_grad_cuda.py -q -m cuda --noconftest
 
 (`--noconftest`: tests/conftest.py sets up JAX, which such a machine may lack.)
 """
 
+import ctypes
+
 import pytest
 import torch
 
 from chip_smoke import LSE_BAR, within_k1_grad_bar
-from vexpress_torch.ops import attention, flash, launches
+from vexpress_torch.ops import attention, flash, flash_tma, launches
+from vexpress_torch.tools.ptxas_report import sass_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +133,78 @@ def test_unsupported_inputs_raise_with_grad(dev):
         flash.flash_sdpa_bwd(q, k, v, out, lse, strided_do, 2, 40**-0.5)
     with pytest.raises(ValueError, match="take"):
         flash.flash_sdpa_fwd(q.half(), k.half(), v.half(), 2, 40**-0.5)
+
+
+def _tma_backward(dev, b, lq, lk, d, heads, seed):
+    """The forward with its LSE, then both backward kernels through
+    `launch_bwd`: (dq, dk, dv), the plain versions' (out, lse, dq, dk, dv),
+    and the inputs."""
+    q, k, v, do = _inputs(dev, b, lq, lk, heads * d, torch.bfloat16, seed=seed)
+    out, lse = flash.flash_sdpa_fwd(q, k, v, heads, d**-0.5)
+    di = flash.bwd_di(do, out, heads)
+    launches.reset()
+    grads = flash.launch_bwd(q, k, v, do, lse, di, heads, d**-0.5)
+    torch.cuda.synchronize()
+    return grads, _plain_grads(q, k, v, do, heads), (q, k, v, do, lse, di)
+
+
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("lq,lk", [(192, 320), (320, 192), (64, 64)])
+def test_wgmma_backward_trailing_tiles(dev, lq, lk, d):
+    """A trailing 64-row tile inside a 128-row block on each axis (and a
+    single 64-row tile on both): the wgmma kernels' idle warpgroup stores
+    nothing, the rows they do store are within the bar, and nothing past
+    Lq or Lk is written."""
+    (dq, dk, dv), (_, _, rdq, rdk, rdv), _ = _tma_backward(dev, 2, lq, lk, d, 2, seed=d + lq)
+    assert launches.counts["flash_bwd_dkv"] == 1 and launches.counts["flash_bwd_dq"] == 1
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert bool(torch.isfinite(got).all()), name
+        _assert_within_bar(got, ref, name)
+
+
+@pytest.mark.parametrize("b,lq,lk,d", [(1, 8 * 1024, 1024, 80), (1, 1024, 1024, 80),
+                                       (1, 1024, 1024, 40)])
+def test_wgmma_backward_split_query_axis(dev, b, lq, lk, d):
+    """The reference net's and attn1_5's B=1 rows: the dk/dv kernel cuts the
+    query axis into parts (fp32 partial sums, added in order by
+    flash_bwd_dkv_sum), within the same bar as one part."""
+    heads = 8
+    parts = flash_tma.dkv_splits(b, heads, lq, lk)
+    assert parts > 1
+    (dq, dk, dv), (_, _, rdq, rdk, rdv), _ = _tma_backward(dev, b, lq, lk, d, heads, seed=7)
+    assert launches.counts["flash_bwd_dkv_sum"] == 1
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        _assert_within_bar(got, ref, name)
+
+
+@pytest.mark.parametrize("b,lq,lk,d", [(2, 1024, 1024, 40), (1, 8 * 1024, 1024, 80)])
+def test_wgmma_backward_is_deterministic(dev, b, lq, lk, d):
+    """Two launches on the same inputs give bitwise-equal dq, dk and dv, with
+    one part and with the query axis split."""
+    heads = 8
+    first, _, (q, k, v, do, lse, di) = _tma_backward(dev, b, lq, lk, d, heads, seed=11)
+    again = flash.launch_bwd(q, k, v, do, lse, di, heads, d**-0.5)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(x, y), name
+
+
+def test_library_bwd_tile_is_flash_tma_bwd_tile(dev):
+    """The library's backward tiling per head dim (vx_flash_bwd_tile, from
+    csrc/flash_bwd_wgmma.cuh's BwdTile) is ops/flash_tma.py's."""
+    lib = flash._library()
+    out = (ctypes.c_longlong * len(flash_tma.BWD_TILE_FIELDS))()
+    for d in flash_tma.BWD_SWIZZLE:
+        assert lib.vx_flash_bwd_tile(d, out) == 0
+        assert dict(zip(flash_tma.BWD_TILE_FIELDS, out)) == flash_tma.bwd_tile(d)
+    assert lib.vx_flash_bwd_tile(160, out) != 0
+
+
+def test_bf16_backward_kernels_use_wgmma_and_tma(dev):
+    """Every bf16 wgmma backward kernel in the built library (dk/dv and dq at
+    D=40 and 80) holds HGMMA (wgmma) and UTMALDG (TMA loads) in its SASS."""
+    for part in ("flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma"):
+        ops = sass_ops(flash.build(), part)
+        assert len(ops) == 2, (part, sorted(ops))
+        for name, found in ops.items():
+            assert {"HGMMA", "UTMALDG"} <= set(found), (name, found)

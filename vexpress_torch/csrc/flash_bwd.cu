@@ -2,47 +2,54 @@
 //
 // Replaces: the backward of the JAX library's Pallas TPU flash_attention that
 // vexpress_tpu/ops/flash.py::flash_sdpa reaches under jax.value_and_grad
-// (jax/experimental/pallas/ops/tpu/flash_attention.py: _flash_attention_bwd_dkv
-// and _flash_attention_bwd_dq). Same functions, non-causal, per (batch, head):
+// (jax/experimental/pallas/ops/tpu/flash_attention.py: _flash_attention_bwd_dkv,
+// pallas_call :1121, and _flash_attention_bwd_dq, pallas_call :1456). Same
+// functions, non-causal, per (batch, head):
 //   P  = exp(scale * q k^T - lse)          (lse from the forward, fp32)
 //   dv = P^T do                            dP = do v^T
 //   dS = P * (dP - di), di = rowsum(do * o) (computed by the caller, fp32)
 //   dk = scale * dS^T q                    dq = scale * dS k
+// Two kernels, as the TPU library has, each deterministic (no atomics).
 // Nothing of size Lq x Lk reaches device memory.
 //
-// Bound on an H100 SXM: 10*B*H*Lq*Lk*D tensor-core operations for the pair
-// (S, dP, dv, dq, dk) over about 2*(4*Lq + 4*Lk)*B*H*D bytes: far above the
-// ~295 op/byte ridge at every training shape, so operations bound it. As in
-// the forward, each (query, key) pair also costs an exp on the SFUs, and both
-// kernels recompute P (and dP), so the real floor at D=40 is the exps:
-// 2*B*H*Lq*Lk of them.
+// Bound on an H100 SXM: 8*B*H*Lq*Lk*D tensor-core operations for dk/dv (S,
+// dP, dv, dk) and 6*B*H*Lq*Lk*D for dq (S, dP, dq), over about 2*(2*Lq +
+// 2*Lk)*B*H*D bytes each: far above the ~295 op/byte ridge at every
+// training shape, so operations bound both. Each kernel also recomputes P,
+// one exp per (query, key) pair on the SFUs.
 //
-// Design (a first, simple version, like flash_fwd.cu):
-// * dk/dv (bf16): one block of 4 warps per (batch*head, 64 keys); each warp
-//   owns 16 keys whose K and V fragments stay in registers. The block walks all
-//   query tiles (Q, dO, lse and di staged in shared memory), computes S^T =
-//   K Q^T and dP^T = V dO^T with mma.sync m16n8k16, turns them into P^T and
-//   dS^T in registers, and accumulates dv += P^T dO and dk += dS^T Q in fp32
-//   registers: no atomics, deterministic. The long query axis of attn1_5
-//   (all frames against one reference bank) is walked by one block: correct
-//   but few blocks (B*H*Lk/64).
-// * dq (bf16): one block of 4 warps per (batch*head, 64 queries); Q and dO
-//   fragments in registers, K/V tiles in shared memory, dq += dS K in fp32
-//   registers. Deterministic.
-// * fp32: the same two loops with scalar FMAs (4 threads per row, each owning
-//   D/4 columns); used by the parity checks.
-// Not done yet (later work): cp.async/TMA, wgmma, fusing di into the dq kernel,
-// splitting the query axis of dk/dv across blocks.
+// What runs where:
+// * bf16 at D=40 and D=80 (every training shape): flash_bwd_dkv_wgmma and
+//   flash_bwd_dq_wgmma (flash_bwd_wgmma.cuh): TMA loads of 64-row boxes of
+//   the 4-D (D, H, L, B) tensor maps into an mbarrier ring (3 stages for
+//   dk/dv, 4 for dq), a
+//   producer warpgroup and two wgmma consumer warpgroups per 128 keys (dk/dv)
+//   or 128 queries (dq). The host geometry (maps, grid, shared memory, query
+//   parts) comes from ops/flash_tma.py (`bwd_geometry`), the maps are encoded
+//   here (hopper.cuh's `encode`). Where B*H*ceil(Lk/128) blocks would not
+//   fill the card (attn1_5 and the reference net's B=1 rows), the dk/dv
+//   kernel splits the query axis into parts (ops/flash_tma.py::dkv_splits);
+//   each part writes fp32 partial sums into a workspace the wrapper
+//   allocates, and flash_bwd_dkv_sum adds them in part order and writes bf16.
+// * bf16 at D=160 (off every path: its levels are below sdpa's Lk >= 512):
+//   the first design's mma.sync m16n8k16 kernels, one block of 4 warps per
+//   64 keys or 64 queries, synchronous staging through padded shared memory.
+// * fp32 (the parity phases): the same two loops with scalar FMAs (4 threads
+//   per row, each owning D/4 columns).
+// Not done yet: the D=160 kernels on wgmma; one kernel for the pair (dq
+// summed across key blocks with fp32 atomics, no longer deterministic).
 //
-// Layout: q, o, do, dq (B, Lq, H*D); k, v, dk, dv (B, Lk, H*D), read and
-// written through the batch and row strides given (elements); the last dim is
-// contiguous. lse and di are contiguous (B, H, Lq) fp32. Lq and Lk multiples
-// of 64, D one of 40, 80, 160 (the wrapper checks). Launches go on the
-// caller's stream, allocate nothing and do not synchronise; each function
-// returns cudaGetLastError().
+// Layout: q, o, do, dq (B, Lq, H*D); k, v, dk, dv (B, Lk, H*D). The wgmma
+// kernels take them contiguous; the others read and write through the batch
+// and row strides given (elements; the last dim contiguous). lse and di are
+// contiguous (B, H, Lq) fp32. Lq and Lk multiples of 64, D one of 40, 80, 160
+// (the wrapper checks). Launches go on the caller's stream, allocate nothing
+// and do not synchronise; each function returns cudaGetLastError(), or a
+// failed encode's code (vx_error_string names it).
 
 #include <math.h>
 
+#include "flash_bwd_wgmma.cuh"
 #include "flash_common.cuh"
 
 namespace {
@@ -50,13 +57,13 @@ namespace {
 using namespace vx;
 using bf16 = __nv_bfloat16;
 
-constexpr int ROWS = 64;  // keys (dk/dv) or queries (dq) per block
+constexpr int ROWS = 64;  // keys (dk/dv) or queries (dq) per block of the mma and scalar kernels
 
 struct BwdStrides {
   long long q_b, q_l, k_b, k_l, v_b, v_l, do_b, do_l, dq_b, dq_l, dk_b, dk_l, dv_b, dv_l;
 };
 
-// ------------------------------------------------------------ dk/dv, bf16 mma
+// ------------------------------------------------- dk/dv, bf16 mma (D=160)
 template <int D, int QT>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -186,7 +193,7 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------------- dq, bf16 mma
+// ---------------------------------------------------- dq, bf16 mma (D=160)
 template <int D, int KT>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -435,27 +442,29 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
   for (int d = 0; d < DQ; ++d) dqp[d] = dqa[d] * scale;
 }
 
-// query-tile (dk/dv) and key-tile (dq) widths of the mma kernels: 64 where the
-// register budget allows it, 32 at D=160
-template <int D> constexpr int walk_tile() { return D <= 80 ? 64 : 32; }
+// query-tile (dk/dv) and key-tile (dq) width of the D=160 mma kernels
+constexpr int MMA_WALK = 32;
 
+// bf16 at D=160 (mma.sync) or fp32 (scalar), at any D the wrapper takes
 template <int D>
 void launch_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* di, void* dk, void* dv, int B, int H, int Lq,
                 int Lk, const BwdStrides& st, float scale, cudaStream_t s) {
   const dim3 grid(Lk / ROWS, B * H);
   const float sl = scale * LOG2E;
-  if (dtype == 1) {
-    flash_bwd_dkv_mma<D, walk_tile<D>()><<<grid, 128, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        H, Lq, st, scale, sl);
-  } else {
-    flash_bwd_dkv_simt<D><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), lse, di, static_cast<float*>(dk),
-        static_cast<float*>(dv), H, Lq, st, scale, sl);
+  if constexpr (D == 160) {
+    if (dtype == 1) {
+      flash_bwd_dkv_mma<D, MMA_WALK><<<grid, 128, 0, s>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+          H, Lq, st, scale, sl);
+      return;
+    }
   }
+  flash_bwd_dkv_simt<D><<<grid, 256, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv),
+      H, Lq, st, scale, sl);
 }
 
 template <int D>
@@ -464,17 +473,19 @@ void launch_dq(int dtype, const void* q, const void* k, const void* v, const voi
                const BwdStrides& st, float scale, cudaStream_t s) {
   const dim3 grid(Lq / ROWS, B * H);
   const float sl = scale * LOG2E;
-  if (dtype == 1) {
-    flash_bwd_dq_mma<D, walk_tile<D>()><<<grid, 128, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dq), H, Lq, Lk, st, scale,
-        sl);
-  } else {
-    flash_bwd_dq_simt<D><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), H, Lq, Lk, st, scale,
-        sl);
+  if constexpr (D == 160) {
+    if (dtype == 1) {
+      flash_bwd_dq_mma<D, MMA_WALK><<<grid, 128, 0, s>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dq), H, Lq, Lk, st, scale,
+          sl);
+      return;
+    }
   }
+  flash_bwd_dq_simt<D><<<grid, 256, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), H, Lq, Lk, st, scale,
+      sl);
 }
 
 BwdStrides strides_from(const long long* s) {
@@ -482,22 +493,117 @@ BwdStrides strides_from(const long long* s) {
                     s[7], s[8], s[9], s[10], s[11], s[12], s[13]};
 }
 
-bool bad_args(int dtype, int B, int H, int Lq, int Lk) {
-  return (dtype != 0 && dtype != 1) || Lq % ROWS != 0 || Lk % ROWS != 0 || B * H > 65535;
+// The mma/scalar entries take fp32 at D=40, 80, 160 and bf16 at D=160 only:
+// bf16 at D=40 and 80 is the wgmma kernels' (vx_flash_bwd_*_tma).
+bool bad_args(int dtype, int B, int H, int Lq, int Lk, int D) {
+  return (dtype != 0 && dtype != 1) || (dtype == 1 && D != 160) || !flash_shape_ok(B, H, Lq, Lk);
 }
+
+// ------------------------------------------------------- bf16 wgmma (TMA)
+// dk, dv (bf16) = the sum of the dk/dv kernel's `parts` fp32 partial sums
+// (ws: part p's dk at p*n, its dv at (parts+p)*n), added in part order, so
+// the result does not depend on the schedule; n a multiple of 4
+__global__ void __launch_bounds__(256)
+flash_bwd_dkv_sum(const float* __restrict__ ws, int parts, long long n, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv) {
+  const long long n4 = n / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < 2 * n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const bool is_v = i >= n4;
+    const long long e = is_v ? i - n4 : i;
+    const float4* src = reinterpret_cast<const float4*>(ws + (is_v ? parts * n : 0)) + e;
+    float4 acc = src[0];
+    for (int p = 1; p < parts; ++p) {
+      const float4 x = src[p * n4];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    *reinterpret_cast<uint2*>((is_v ? dv : dk) + 4 * e) =
+        make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+  }
+}
+
+// `geom` (ops/flash_tma.py::bwd_geometry_arg): swizzle bytes, box columns,
+// box rows, grid x, y and z (the dk/dv kernel's query parts; 1 for dq),
+// dynamic shared memory bytes, then q's dims (D, H, Lq, B) and byte strides
+// (dO's are q's), then k's (v's are k's). The maps' boxes are (CW, 1, 64, 1).
+template <typename T, int SW>
+int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* dout,
+             const long long* geom, int grid_x) {
+  if (geom[0] != SW || geom[1] != T::CW || geom[2] != T::ROWS || geom[3] != grid_x ||
+      geom[4] <= 0 || geom[4] > 65535 || geom[6] != T::SMEM)
+    return (int)cudaErrorInvalidValue;
+  int rc = encode(&m[0], q, geom + 7, geom + 11, T::CW, T::ROWS, SW);
+  if (rc == 0) rc = encode(&m[1], dout, geom + 7, geom + 11, T::CW, T::ROWS, SW);
+  if (rc == 0) rc = encode(&m[2], k, geom + 14, geom + 18, T::CW, T::ROWS, SW);
+  if (rc == 0) rc = encode(&m[3], v, geom + 14, geom + 18, T::CW, T::ROWS, SW);
+  return rc;
+}
+
+template <int D, int SW>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* di, void* dk, void* dv, float* ws, int H,
+                     int Lq, int Lk, const long long* geom, float scale, cudaStream_t s) {
+  using T = DkvTile<D, SW>;
+  const long long parts = geom[5];
+  if (parts < 1 || parts > Lq / T::ROWS || (parts > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  int rc = bwd_maps<T, SW>(m, q, k, v, dout, geom, (Lk + T::BLOCK - 1) / T::BLOCK);
+  if (rc != 0) return rc;
+  const auto kernel = flash_bwd_dkv_wgmma<D, SW>;
+  static std::atomic<unsigned long long> smem_set{0};
+  rc = set_smem_once(kernel, T::SMEM, smem_set);
+  if (rc != 0) return rc;
+  kernel<<<dim3((unsigned)geom[3], (unsigned)geom[4], (unsigned)parts), BWD_THREADS, T::SMEM,
+           s>>>(m[0], m[1], m[2], m[3], lse, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                parts > 1 ? ws : nullptr, H, Lq, Lk, scale, scale * LOG2E);
+  rc = (int)cudaGetLastError();
+  if (rc != 0 || parts == 1) return rc;
+  const long long n = geom[4] * Lk * D;  // B*H*Lk*D elements of dk (and of dv)
+  const long long blocks = (2 * (n / 4) + 255) / 256;
+  flash_bwd_dkv_sum<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      ws, (int)parts, n, static_cast<bf16*>(dk), static_cast<bf16*>(dv));
+  return (int)cudaGetLastError();
+}
+
+template <int D, int SW>
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* di, void* dq, int H, int Lq, int Lk,
+                    const long long* geom, float scale, cudaStream_t s) {
+  using T = DqTile<D, SW>;
+  if (geom[5] != 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  int rc = bwd_maps<T, SW>(m, q, k, v, dout, geom, (Lq + T::BLOCK - 1) / T::BLOCK);
+  if (rc != 0) return rc;
+  const auto kernel = flash_bwd_dq_wgmma<D, SW>;
+  static std::atomic<unsigned long long> smem_set{0};
+  rc = set_smem_once(kernel, T::SMEM, smem_set);
+  if (rc != 0) return rc;
+  kernel<<<dim3((unsigned)geom[3], (unsigned)geom[4]), BWD_THREADS, T::SMEM, s>>>(
+      m[0], m[1], m[2], m[3], lse, di, static_cast<bf16*>(dq), H, Lq, Lk, scale, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// the (D, swizzle bytes) instantiations of the wgmma backward: the forward's
+// layout (128-byte swizzle) at D=40 and 80. The wrapper's table is
+// ops/flash_tma.py::BWD_SWIZZLE; `vx_flash_bwd_tile` lets it check the two agree.
+#define VX_BWD_WGMMA(X) X(40, 128) X(80, 128)
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. `strides` holds 14 element strides:
-// (batch, row) of q, k, v, do, dq, dk, dv in that order. lse, di: (B, H, Lq)
-// fp32, contiguous.
+// dtype: 0 = float32, 1 = bfloat16 (D=160 only). `strides` holds 14 element
+// strides: (batch, row) of q, k, v, do, dq, dk, dv in that order. lse, di:
+// (B, H, Lq) fp32, contiguous.
 int vx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* di, void* dk, void* dv, int dtype, int B, int H,
                      int Lq, int Lk, int D, const long long* strides, float scale,
                      void* stream) {
-  if (bad_args(dtype, B, H, Lq, Lk)) return (int)cudaErrorInvalidValue;
+  if (bad_args(dtype, B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   const BwdStrides st = strides_from(strides);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
@@ -516,7 +622,7 @@ int vx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
 int vx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* di, void* dq, int dtype, int B, int H, int Lq,
                     int Lk, int D, const long long* strides, float scale, void* stream) {
-  if (bad_args(dtype, B, H, Lq, Lk)) return (int)cudaErrorInvalidValue;
+  if (bad_args(dtype, B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   const BwdStrides st = strides_from(strides);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
@@ -528,6 +634,61 @@ int vx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dou
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// bf16 at D=40 or 80, contiguous q, k, v, do, dk, dv; lse, di as above. `ws`:
+// null, or with geom's z > 1 parts an fp32 workspace of 2 * parts * B*Lk*H*D
+// elements, 16-byte aligned.
+int vx_flash_bwd_dkv_tma(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* di, void* dk, void* dv, void* ws, int B,
+                         int H, int Lq, int Lk, int D, const long long* geom, float scale,
+                         void* stream) {
+  if (!vx::flash_shape_ok(B, H, Lq, Lk)) return (int)cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(di);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VX_CASE(D_, SW_)                                                                     \
+  if (D == D_)                                                                               \
+    return launch_dkv_wgmma<D_, SW_>(q, k, v, dout, l, d, dk, dv, static_cast<float*>(ws), H, \
+                                     Lq, Lk, geom, scale, s);
+  VX_BWD_WGMMA(VX_CASE)
+#undef VX_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// bf16 at D=40 or 80, contiguous q, k, v, do, dq; lse, di as above.
+int vx_flash_bwd_dq_tma(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* di, void* dq, int B, int H, int Lq, int Lk,
+                        int D, const long long* geom, float scale, void* stream) {
+  if (!vx::flash_shape_ok(B, H, Lq, Lk)) return (int)cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(di);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VX_CASE(D_, SW_) \
+  if (D == D_) return launch_dq_wgmma<D_, SW_>(q, k, v, dout, l, d, dq, H, Lq, Lk, geom, scale, s);
+  VX_BWD_WGMMA(VX_CASE)
+#undef VX_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tiling of the wgmma backward at head dim D, in the order of
+// ops/flash_tma.py::BWD_TILE_FIELDS: swizzle bytes, box columns, box rows
+// (= a ring tile's and a consumer warpgroup's rows), rows of a block, ring
+// stages of dk/dv and of dq, their dynamic shared memory bytes, threads.
+// Returns cudaErrorInvalidValue for a D with no instantiation.
+int vx_flash_bwd_tile(int D, long long* out) {
+#define VX_TILE(D_, SW_)                                                                  \
+  if (D == D_) {                                                                          \
+    using K = DkvTile<D_, SW_>;                                                           \
+    using Q = DqTile<D_, SW_>;                                                            \
+    const long long t[9] = {SW_,       K::CW,     K::ROWS,   K::BLOCK,   K::STAGES,       \
+                            Q::STAGES, K::SMEM,   Q::SMEM,   BWD_THREADS};                \
+    for (int i = 0; i < 9; ++i) out[i] = t[i];                                            \
+    return 0;                                                                             \
+  }
+  VX_BWD_WGMMA(VX_TILE)
+#undef VX_TILE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

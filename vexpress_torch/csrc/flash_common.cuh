@@ -45,6 +45,12 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
   return pack_bf16(f.x * s, f.y * s);
 }
 
+// what every flash launch takes: Lq and Lk positive multiples of 64, at most
+// 65535 (batch, head) pairs (the grid's y)
+inline bool flash_shape_ok(int B, int H, int Lq, int Lk) {
+  return Lq % 64 == 0 && Lk % 64 == 0 && Lq > 0 && Lk > 0 && B * H <= 65535;
+}
+
 // element strides of the forward kernels: batch, head, row (the head dim is contiguous)
 struct Strides {
   long long q_b, q_h, q_l, k_b, k_h, k_l, v_b, v_h, v_l, o_b, o_h, o_l;

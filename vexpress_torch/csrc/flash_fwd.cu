@@ -25,8 +25,9 @@
 //   runs while P V of the tile before does. The tensor maps
 //   are encoded here from the geometry that ops/flash_tma.py computes (dims,
 //   byte strides, box, swizzle, grid, shared memory), through the driver's
-//   cuTensorMapEncodeTiled (found with cudaGetDriverEntryPoint, so the
-//   library needs no -lcuda), and passed as __grid_constant__ parameters.
+//   cuTensorMapEncodeTiled (hopper.cuh's `encode`, shared with the backward;
+//   found with cudaGetDriverEntryPoint, so the library needs no -lcuda), and
+//   passed as __grid_constant__ parameters.
 //   K1's exps are ex2.approx.ftz.f32 with scale*log2(e) folded into one FMA.
 // * fp32: flash_fwd_simt, scalar FMAs (4 threads per query row, each owning
 //   D/4 columns), 64 query rows and 32-key tiles a block, exact fp32
@@ -61,8 +62,6 @@
 // cudaGetLastError(), or a failed encode's code (vx_error_string names it).
 
 #include <stdio.h>
-
-#include <atomic>
 
 #include "flash_fwd_wgmma.cuh"
 
@@ -145,48 +144,6 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // ------------------------------------------------------------- bf16 (TMA)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-constexpr int ERR_ENCODE = 10000;    // + the CUresult of a failed encode
-constexpr int ERR_NO_ENCODE = 20000; // the driver has no cuTensorMapEncodeTiled
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A 4-D bf16 map: dims (D, H, L, B), byte strides of dims 1..3, box
-// (cols, 1, rows, 1), zeros past the tensor's bounds.
-int encode(CUtensorMap* map, const void* base, const long long* dims, const long long* strides,
-           int cols, int rows, int sw) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_NO_ENCODE;
-  const cuuint64_t gdim[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1], (cuuint64_t)dims[2],
-                              (cuuint64_t)dims[3]};
-  const cuuint64_t gstride[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
-                                 (cuuint64_t)strides[2]};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim,
-                        gstride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
-}
-
 // `geom` (ops/flash_tma.py::geometry_arg): swizzle bytes, box columns, box
 // rows of q and of k/v, grid x and y, dynamic shared memory bytes, then q's
 // dims (D, H, Lq, B) and byte strides, then k's (v's are k's).
@@ -204,17 +161,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   if (rc == 0) rc = encode(&tv, v, geom + 14, geom + 18, T::CW, T::BK, SW);
   if (rc != 0) return rc;
   const auto kernel = flash_fwd_wgmma<D, LITE, SW>;
-  // the shared-memory limit is set once per device and instantiation (bit dev)
   static std::atomic<unsigned long long> smem_set{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(smem_set.load(std::memory_order_relaxed) & bit)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    smem_set.fetch_or(bit, std::memory_order_relaxed);
-  }
+  rc = set_smem_once(kernel, T::SMEM, smem_set);
+  if (rc != 0) return rc;
   kernel<<<dim3((unsigned)geom[4], (unsigned)geom[5]), WG_THREADS, T::SMEM, s>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, scale);
   return (int)cudaGetLastError();
@@ -244,10 +193,6 @@ void launch_simt(const void* q, const void* k, const void* v, void* o, float* ls
       static_cast<float*>(o), lse, H, Lk, st, scale);
 }
 
-bool shape_ok(int B, int H, int Lq, int Lk) {
-  return Lq % 64 == 0 && Lk % 64 == 0 && Lq > 0 && Lk > 0 && B * H <= 65535;
-}
-
 }  // namespace
 
 extern "C" {
@@ -259,7 +204,8 @@ extern "C" {
 int vx_flash_fwd_tma(const void* q, const void* k, const void* v, void* o, void* lse, int lite,
                      int B, int H, int Lq, int Lk, int D, const long long* geom, float scale,
                      void* stream) {
-  if (!shape_ok(B, H, Lq, Lk) || (lite && lse != nullptr)) return (int)cudaErrorInvalidValue;
+  if (!vx::flash_shape_ok(B, H, Lq, Lk) || (lite && lse != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return lite ? forward_bf16<true>(q, k, v, o, nullptr, H, Lq, Lk, D, geom, scale, s)
               : forward_bf16<false>(q, k, v, o, static_cast<float*>(lse), H, Lq, Lk, D, geom,
@@ -272,7 +218,8 @@ int vx_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void*
                      int B, int H, int Lq, int Lk, int D, long long q_sb, long long q_sl,
                      long long k_sb, long long k_sl, long long v_sb, long long v_sl,
                      long long o_sb, long long o_sl, float scale, void* stream) {
-  if (!shape_ok(B, H, Lq, Lk) || (lite && lse != nullptr)) return (int)cudaErrorInvalidValue;
+  if (!vx::flash_shape_ok(B, H, Lq, Lk) || (lite && lse != nullptr))
+    return (int)cudaErrorInvalidValue;
   const Strides st{q_sb, D, q_sl, k_sb, D, k_sl, v_sb, D, v_sl, o_sb, D, o_sl};
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -311,9 +258,9 @@ int vx_flash_fwd_tile(int D, long long* out) {
 
 const char* vx_error_string(int code) {
   static thread_local char buf[96];
-  if (code == ERR_NO_ENCODE) return "cuTensorMapEncodeTiled not found in the CUDA driver";
-  if (code >= ERR_ENCODE) {
-    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)", code - ERR_ENCODE);
+  if (code == vx::ERR_NO_ENCODE) return "cuTensorMapEncodeTiled not found in the CUDA driver";
+  if (code >= vx::ERR_ENCODE) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)", code - vx::ERR_ENCODE);
     return buf;
   }
   return cudaGetErrorString((cudaError_t)code);

@@ -35,10 +35,10 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap (the encode runs in flash_fwd.cu)
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"  // mbarriers, TMA, wgmma
 
 namespace {
 
@@ -76,161 +76,6 @@ struct WgmmaTile {
   static_assert(SMEM * MINB <= 232448, "shared memory of the blocks on one SM");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ------------------------------------------------------------------ mbarrier
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// ----------------------------------------------------------------------- TMA
-// box of `map` at (c0, c1, c2, c3) into shared memory `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// --------------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (given in bytes, held in 16-byte units), swizzle (1: 128 B, 2: 64 B,
-// 3: 32 B).
-template <int SW>
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed groups of this warpgroup are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving uses of `d` across an asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void wgmma_fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_fence_operands(uint64_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+l"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_fence_operands(uint32_t (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    asm volatile("" : "+r"(d[i][0]), "+r"(d[i][1]), "+r"(d[i][2]), "+r"(d[i][3])::"memory");
-}
-
-#define VX_F8(i)                                                                              \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// Accumulator layout of m64nNk16 (warp w of the warpgroup, g = lane / 4,
-// t = lane % 4): d[4j], d[4j+1] = row 16w+g, columns 8j+2t, 8j+2t+1; d[4j+2],
-// d[4j+3] = row 16w+g+8, the same columns. The A fragment in registers is
-// mma.sync m16n8k16's (flash_common.cuh) for rows 16w..16w+15.
-
-// d (64 x 64) = (scale_d ? d : 0) + A (64 x 16) B^T (B 64 x 16), A and B K-major in smem
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 128) = (scale_d ? d : 0) + A (64 x 16) B^T (B 128 x 16), A and B K-major in smem
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24), VX_F8(32), VX_F8(40), VX_F8(48), VX_F8(56)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 48) += A (64 x 16, bf16 fragments in registers) B (16 x 48, MN-major in smem)
-__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23"
-      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : VX_F8(0), VX_F8(8), VX_F8(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 80) += A (64 x 16, bf16 fragments in registers) B (16 x 80, MN-major in smem)
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24), VX_F8(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 160) += A (64 x 16, bf16 fragments in registers) B (16 x 160, MN-major in smem)
-__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
-      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-      : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24), VX_F8(32), VX_F8(40), VX_F8(48), VX_F8(56), VX_F8(64), VX_F8(72)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-#undef VX_F8
-
 // S = Q K^T over one 16-deep k-step, BK keys
 template <int BK>
 __device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t a, uint64_t b, int scale_d) {
@@ -240,25 +85,6 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t a, uint64_
     static_assert(BK == 64, "key tiles of 64 or 128");
     wgmma_ss_n64(d, a, b, scale_d);
   }
-}
-
-// O += P V over one 16-key k-step at the head dim NV of the products
-template <int NV>
-__device__ __forceinline__ void wgmma_pv(float (&d)[NV / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (NV == 48) {
-    wgmma_rs_n48(d, a, b);
-  } else if constexpr (NV == 80) {
-    wgmma_rs_n80(d, a, b);
-  } else {
-    static_assert(NV == 160, "head dims 40, 80, 160");
-    wgmma_rs_n160(d, a, b);
-  }
-}
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // 2^x of a bf16 pair, each result rounded to bf16
@@ -437,7 +263,7 @@ struct WgConsumer {
     wgmma_fence_operands(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < NKK; ++kk) wgmma_pv<NV>(acc, pa[kk], vd[kk]);
+    for (int kk = 0; kk < NKK; ++kk) wgmma_rs<NV>(acc, pa[kk], vd[kk]);
     wgmma_commit();
   }
 

@@ -5,7 +5,9 @@ library's Pallas TPU flash-attention kernel (and, under a gradient, its two
 backward kernels). Here the kernels are `csrc/flash_fwd.cu` (forward, with an
 optional log-sum-exp output: bf16 through TMA and wgmma,
 `csrc/flash_fwd_wgmma.cuh`, with its host-side geometry in `flash_tma.py`;
-fp32 scalar) and `csrc/flash_bwd.cu` (dk/dv and dq), CUDA C++ for sm_90a,
+fp32 scalar) and `csrc/flash_bwd.cu` (dk/dv and dq: bf16 at D=40 and 80
+through TMA and wgmma, `csrc/flash_bwd_wgmma.cuh`, with its host geometry in
+`flash_tma.py` too), CUDA C++ for sm_90a,
 built by nvcc into one plain-C shared library under `vexpress_torch/_build/`
 at first use and called through ctypes. The same library holds the
 attention-variant bench's kernels T1 and T2 (`ops/flash_variants.py`,
@@ -128,6 +130,12 @@ def _library():
             lib.vx_flash_bwd_dkv.restype = i
             lib.vx_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
             lib.vx_flash_bwd_dq.restype = i
+            lib.vx_flash_bwd_dkv_tma.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
+            lib.vx_flash_bwd_dkv_tma.restype = i
+            lib.vx_flash_bwd_dq_tma.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
+            lib.vx_flash_bwd_dq_tma.restype = i
+            lib.vx_flash_bwd_tile.argtypes = [i, p]
+            lib.vx_flash_bwd_tile.restype = i
             lib.vx_flash_fwd_variant.argtypes = [p, p, p, p, i, i, i, i, i, p, f, i, i, i, i, p]
             lib.vx_flash_fwd_variant.restype = i
             lib.vx_splash_mha_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p, i, i, i, p]
@@ -268,22 +276,35 @@ def _dtype_code(t: torch.Tensor) -> int:
 
 
 _tiles_checked = set()
+_bwd_tiles_checked = set()
+
+
+def _check_tiling(lib, d: int, entry: str, fields, host_tile, checked: set, what: str) -> None:
+    """Before the first bf16 launch at head dim d: the library's tiling (its
+    `entry`) must be flash_tma's (`host_tile`), from which the launch geometry
+    is computed. A d with no instantiation is left to the launch to refuse."""
+    if d in checked:
+        return
+    out = (ctypes.c_longlong * len(fields))()
+    if getattr(lib, entry)(d, out) != 0:
+        return
+    built, host = dict(zip(fields, out)), host_tile(d)
+    if built != host:
+        raise RuntimeError(f"flash {what} at D={d}: the library's tiling {built} is not "
+                           f"ops/flash_tma.py's {host}")
+    checked.add(d)
 
 
 def _check_tile(lib, d: int) -> None:
-    """Before the first bf16 launch at head dim d: the library's tiling
-    (`vx_flash_fwd_tile`) must be flash_tma's, from which the launch geometry
-    is computed. A d with no instantiation is left to the launch to refuse."""
-    if d in _tiles_checked:
-        return
-    out = (ctypes.c_longlong * len(flash_tma.TILE_FIELDS))()
-    if lib.vx_flash_fwd_tile(d, out) != 0:
-        return
-    built, host = dict(zip(flash_tma.TILE_FIELDS, out)), flash_tma.tile(d)
-    if built != host:
-        raise RuntimeError(f"flash forward at D={d}: the library's tiling {built} is not "
-                           f"ops/flash_tma.py's {host}")
-    _tiles_checked.add(d)
+    """The forward's tiling (`vx_flash_fwd_tile`) against flash_tma.tile."""
+    _check_tiling(lib, d, "vx_flash_fwd_tile", flash_tma.TILE_FIELDS, flash_tma.tile,
+                  _tiles_checked, "forward")
+
+
+def _check_bwd_tile(lib, d: int) -> None:
+    """The backward's tiling (`vx_flash_bwd_tile`) against flash_tma.bwd_tile."""
+    _check_tiling(lib, d, "vx_flash_bwd_tile", flash_tma.BWD_TILE_FIELDS, flash_tma.bwd_tile,
+                  _bwd_tiles_checked, "backward")
 
 
 @functools.lru_cache(maxsize=256)
@@ -295,6 +316,19 @@ def _tma_geometry(b: int, lq: int, lk: int, heads: int, d: int):
     if bad:
         raise ValueError("flash forward kernel cannot take this launch: " + "; ".join(bad))
     return flash_tma.geometry_arg(geom)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_tma_geometry(b: int, lq: int, lk: int, heads: int, d: int, kernel: str):
+    """flash_tma's geometry of one launch of the bf16 backward's `kernel`
+    ("dkv" or "dq"), as `vx_flash_bwd_*_tma` reads it, and its parts of the
+    query axis, once per shape; raises where TMA or the kernel cannot take it."""
+    geom = flash_tma.bwd_geometry(b, lq, lk, heads, d, kernel)
+    bad = flash_tma.tma_violations(geom)
+    if bad:
+        raise ValueError(f"flash backward {kernel} kernel cannot take this launch: "
+                         + "; ".join(bad))
+    return flash_tma.bwd_geometry_arg(geom), geom["grid"][2]
 
 
 def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool = False, lite: bool = False):
@@ -352,37 +386,63 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tens
                need_dq: bool = True, need_dkv: bool = True):
     """csrc/flash_bwd.cu on the current stream: the dk/dv kernel when
     `need_dkv`, the dq kernel when `need_dq`; returns (dq, dk, dv) with None
-    for a gradient not asked for. CUDA tensors only."""
+    for a gradient not asked for. CUDA tensors only. bf16 at D=40 and 80
+    runs the TMA/wgmma kernels (csrc/flash_bwd_wgmma.cuh; where the dk/dv
+    kernel splits the query axis, its fp32 workspace is allocated here and
+    `flash_bwd_dkv_sum` adds the parts, counted as its own launch); bf16 at
+    D=160 and fp32 the mma.sync and scalar kernels."""
     _check_kernel_inputs(heads, q=q, k=k, v=v, do=do)
     b, lq, inner = q.shape
     lk, d = k.shape[1], inner // heads
     for name, t in (("lse", lse), ("di", di)):
         if (t.shape != (b, heads, lq) or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.device != q.device):
-            raise ValueError(f"flash backward needs a contiguous fp32 {name} of shape "
-                             f"{(b, heads, lq)} on {q.device}, got {tuple(t.shape)} {t.dtype}")
+                or t.device != q.device or t.data_ptr() % 16):
+            raise ValueError(f"flash backward needs a contiguous 16-byte aligned fp32 {name} of "
+                             f"shape {(b, heads, lq)} on {q.device}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    tma = q.dtype == torch.bfloat16 and d in flash_tma.BWD_SWIZZLE
+    geoms = {kernel: _bwd_tma_geometry(b, lq, lk, heads, d, kernel)
+             for kernel, need in (("dkv", need_dkv), ("dq", need_dq)) if tma and need}
     lib = _library()
+    if tma:
+        _check_bwd_tile(lib, d)
     dq = torch.empty_like(q) if need_dq else None
     dk = torch.empty_like(k) if need_dkv else None
     dv = torch.empty_like(v) if need_dkv else None
-    st = [q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-          do.stride(0), do.stride(1)]
-    for t in (dq, dk, dv):
-        st += [t.stride(0), t.stride(1)] if t is not None else [0, 0]
-    strides = (ctypes.c_longlong * len(st))(*st)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr())
+    if not tma:
+        st = [q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+              do.stride(0), do.stride(1)]
+        for t in (dq, dk, dv):
+            st += [t.stride(0), t.stride(1)] if t is not None else [0, 0]
+        strides = (ctypes.c_longlong * len(st))(*st)
     with torch.cuda.device(q.device):
         stream = _stream(q)
         if need_dkv:
-            rc = lib.vx_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), _dtype_code(q), b,
-                                      heads, lq, lk, d, strides, float(scale), stream)
+            parts = 1
+            if tma:
+                geom, parts = geoms["dkv"]
+                ws = (torch.empty((2, parts, b, lk, inner), dtype=torch.float32, device=q.device)
+                      if parts > 1 else None)
+                rc = lib.vx_flash_bwd_dkv_tma(*args, dk.data_ptr(), dv.data_ptr(),
+                                              None if ws is None else ws.data_ptr(), b, heads,
+                                              lq, lk, d, geom, float(scale), stream)
+            else:
+                rc = lib.vx_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), _dtype_code(q), b,
+                                          heads, lq, lk, d, strides, float(scale), stream)
             _raise_on(rc, "backward dk/dv")
             counts["flash_bwd_dkv"] += 1
             shapes[("flash_bwd_dkv", b, lq, lk, d)] += 1
+            if parts > 1:
+                counts["flash_bwd_dkv_sum"] += 1
         if need_dq:
-            rc = lib.vx_flash_bwd_dq(*args, dq.data_ptr(), _dtype_code(q), b, heads, lq, lk, d,
-                                     strides, float(scale), stream)
+            if tma:
+                rc = lib.vx_flash_bwd_dq_tma(*args, dq.data_ptr(), b, heads, lq, lk, d,
+                                             geoms["dq"][0], float(scale), stream)
+            else:
+                rc = lib.vx_flash_bwd_dq(*args, dq.data_ptr(), _dtype_code(q), b, heads, lq, lk,
+                                         d, strides, float(scale), stream)
             _raise_on(rc, "backward dq")
             counts["flash_bwd_dq"] += 1
             shapes[("flash_bwd_dq", b, lq, lk, d)] += 1

@@ -12,6 +12,13 @@ B) with element strides (1, D, H*D, L*H*D), so one (batch, head)'s tile of
 rows is one box. A box is (CW, 1, rows, 1): CW = swizzle / 2 bf16 columns,
 128 rows of q, `tile_k` rows of k and v. The kernel cuts the head dim into
 ceil(NV / CW) such chunks, NV = D rounded up to the wgmma depth 16; TMA reads zeros past D.
+
+The backward's kernels (csrc/flash_bwd_wgmma.cuh, bf16 at D=40 and 80) read
+the same 4-D views in boxes of 64 rows (`bwd_geometry`), with the tiling
+`bwd_tile` that csrc/flash_bwd_wgmma.cuh's BwdTile sets and
+`vx_flash_bwd_tile` reports; `dkv_splits` chooses how many parts the dk/dv
+kernel cuts the query axis into, and `dkv_parts` which query tiles each part
+walks, as the kernel computes them.
 """
 
 from __future__ import annotations
@@ -83,11 +90,12 @@ def fwd_geometry(b: int, lq: int, lk: int, heads: int, d: int) -> dict:
     sw, cw = t["swizzle"], t["box_cols"]
     nv = padded_head_dim(d)
     chunks = -(-nv // cw)
-    return dict(swizzle=sw, head_dim=d, padded_head_dim=nv, chunks=chunks,
+    return dict(kernel="fwd", swizzle=sw, head_dim=d, padded_head_dim=nv, chunks=chunks,
                 smem_head_dim=chunks * cw,
                 q=_tensor_map(b, lq, heads, d, TILE_Q, sw),
                 kv=_tensor_map(b, lk, heads, d, t["tile_k"], sw),
-                grid=(-(-lq // TILE_Q), b * heads), threads=THREADS, smem=t["smem"])
+                grid=(-(-lq // TILE_Q), b * heads), threads=THREADS, smem=t["smem"],
+                blocks_per_sm=t["blocks_per_sm"])
 
 
 def tma_violations(geom: dict) -> List[str]:
@@ -95,7 +103,8 @@ def tma_violations(geom: dict) -> List[str]:
     messages (none for a launch the kernel can take)."""
     bad = []
     sw = geom["swizzle"]
-    if SWIZZLE.get(geom["head_dim"]) != sw:
+    table = SWIZZLE if geom["kernel"] == "fwd" else BWD_SWIZZLE
+    if table.get(geom["head_dim"]) != sw:
         bad.append(f"no instantiation for D={geom['head_dim']} at swizzle {sw}")
     for name in ("q", "kv"):
         m = geom[name]
@@ -109,11 +118,17 @@ def tma_violations(geom: dict) -> List[str]:
         if row_bytes % 16 or row_bytes > sw:
             bad.append(f"{name}: box rows of {row_bytes} bytes, not a multiple of 16 within "
                        f"the {sw}-byte swizzle span")
-    if geom["smem"] * blocks_per_sm(geom["head_dim"]) > SMEM_LIMIT:
+    if geom["smem"] * geom["blocks_per_sm"] > SMEM_LIMIT:
         bad.append(f"shared memory {geom['smem']} bytes a block, "
-                   f"{blocks_per_sm(geom['head_dim'])} blocks an SM, above {SMEM_LIMIT}")
+                   f"{geom['blocks_per_sm']} blocks an SM, above {SMEM_LIMIT}")
     if not 0 < geom["grid"][1] <= 65535:
         bad.append(f"grid y {geom['grid'][1]} outside (0, 65535]")
+    if geom["kernel"] != "fwd":
+        walked = geom["q"]["dims"][2] // BWD_ROWS  # query tiles the dk/dv parts share
+        if not 1 <= geom["grid"][2] <= (walked if geom["kernel"] == "dkv" else 1):
+            bad.append(f"{geom['grid'][2]} parts of {walked} query tiles")
+        if any(m["dims"][2] % BWD_ROWS for m in (geom["q"], geom["kv"])):
+            bad.append(f"rows not whole {BWD_ROWS}-row tiles")
     return bad
 
 
@@ -124,4 +139,91 @@ def geometry_arg(geom: dict):
     q, kv = geom["q"], geom["kv"]
     vals = [geom["swizzle"], q["box"][0], q["box"][2], kv["box"][2], *geom["grid"],
             geom["smem"], *q["dims"], *q["strides"], *kv["dims"], *kv["strides"]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+# ------------------------------------------------------------------ backward
+# swizzle span by head dim of the backward's instantiations (csrc/flash_bwd.cu's
+# VX_BWD_WGMMA): the forward's layout at D=40 and 80. D=160 runs the mma.sync
+# kernels, through no TMA geometry.
+BWD_SWIZZLE = {40: 128, 80: 128}
+BWD_ROWS = 64  # rows of a box, of a consumer warpgroup and of a ring tile
+BWD_BLOCK = 128  # keys (dk/dv) or queries (dq) of a block: two consumer warpgroups
+# ring stages of each backward kernel (flash_bwd_wgmma.cuh's DKV_STAGES,
+# DQ_STAGES): a fourth speeds dq up and not dk/dv (PERF.md §6)
+BWD_STAGES = {"dkv": 3, "dq": 4}
+N_SMS = 132  # SMs of an H100 SXM: the dk/dv kernel's parts fill one wave of blocks
+# what `bwd_tile` returns, in the order of csrc/flash_bwd.cu::vx_flash_bwd_tile
+BWD_TILE_FIELDS = ("swizzle", "box_cols", "box_rows", "block_rows", "dkv_stages", "dq_stages",
+                   "dkv_smem", "dq_smem", "threads")
+
+
+def bwd_smem_bytes(d: int, swizzle: int, stages: int) -> int:
+    """Dynamic shared memory of one backward block (BwdTile::SMEM): two fixed
+    128-row tiles, `stages` stages of two 64-row tiles, the lse and di
+    values, the mbarriers and 1024 bytes of alignment slack."""
+    chunks = -(-padded_head_dim(d) // (swizzle // 2))
+    fixed = chunks * BWD_BLOCK * swizzle
+    ring = chunks * BWD_ROWS * swizzle
+    stats = max(stages * 2 * BWD_ROWS * 4, 2 * BWD_BLOCK * 4)
+    return 2 * fixed + 2 * stages * ring + stats + 8 * (2 * stages + 1) + 1024
+
+
+def bwd_tile(d: int) -> dict:
+    """The backward kernels' tiling at head dim d, keyed by BWD_TILE_FIELDS
+    (one block an SM; a head dim with no instantiation gets 128-byte
+    swizzle, which `tma_violations` then names)."""
+    sw = BWD_SWIZZLE.get(d, 128)
+    return dict(swizzle=sw, box_cols=sw // 2, box_rows=BWD_ROWS, block_rows=BWD_BLOCK,
+                dkv_stages=BWD_STAGES["dkv"], dq_stages=BWD_STAGES["dq"],
+                dkv_smem=bwd_smem_bytes(d, sw, BWD_STAGES["dkv"]),
+                dq_smem=bwd_smem_bytes(d, sw, BWD_STAGES["dq"]), threads=THREADS)
+
+
+def dkv_splits(b: int, heads: int, lq: int, lk: int) -> int:
+    """Parts of the query axis for the dk/dv kernel: 1 where its B*H*
+    ceil(Lk/128) blocks fill the card's N_SMS SMs; otherwise the most parts
+    that still run in one wave, and no more than there are 64-row query
+    tiles. Depends on the shape alone, so a shape's sum is always taken in
+    the same order."""
+    blocks = b * heads * -(-lk // BWD_BLOCK)
+    return max(1, min(N_SMS // blocks, lq // BWD_ROWS))
+
+
+def dkv_parts(lq: int, parts: int) -> List[tuple]:
+    """[start, end) query tiles (64 rows each) that each part walks, as the
+    dk/dv kernel computes them: part p from p*T//parts to (p+1)*T//parts of
+    the T = Lq/64 tiles."""
+    tiles = lq // BWD_ROWS
+    return [(p * tiles // parts, (p + 1) * tiles // parts) for p in range(parts)]
+
+
+def bwd_geometry(b: int, lq: int, lk: int, heads: int, d: int, kernel: str) -> dict:
+    """Everything the host sets for one launch of the backward's `kernel`
+    ("dkv" or "dq"): the maps of q (and dO) and k (and v) with 64-row boxes,
+    the grid (blocks along Lk for dk/dv and along Lq for dq, B*H, parts of
+    the query axis), the shared memory."""
+    if kernel not in ("dkv", "dq"):
+        raise ValueError(f"backward kernel {kernel!r}: 'dkv' or 'dq'")
+    t = bwd_tile(d)
+    sw, cw = t["swizzle"], t["box_cols"]
+    nv = padded_head_dim(d)
+    chunks = -(-nv // cw)
+    blocks_along = lk if kernel == "dkv" else lq
+    parts = dkv_splits(b, heads, lq, lk) if kernel == "dkv" else 1
+    return dict(kernel=kernel, swizzle=sw, head_dim=d, padded_head_dim=nv, chunks=chunks,
+                smem_head_dim=chunks * cw,
+                q=_tensor_map(b, lq, heads, d, BWD_ROWS, sw),
+                kv=_tensor_map(b, lk, heads, d, BWD_ROWS, sw),
+                grid=(-(-blocks_along // BWD_BLOCK), b * heads, parts), threads=THREADS,
+                smem=t[f"{kernel}_smem"], blocks_per_sm=1)
+
+
+def bwd_geometry_arg(geom: dict):
+    """The int64 array `vx_flash_bwd_dkv_tma` and `vx_flash_bwd_dq_tma`
+    read: swizzle, box columns, box rows, grid x, y and z, shared memory,
+    q's dims and byte strides, k's dims and byte strides."""
+    q, kv = geom["q"], geom["kv"]
+    vals = [geom["swizzle"], q["box"][0], q["box"][2], *geom["grid"], geom["smem"], *q["dims"],
+            *q["strides"], *kv["dims"], *kv["strides"]]
     return (ctypes.c_longlong * len(vals))(*vals)

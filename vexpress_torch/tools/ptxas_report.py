@@ -9,9 +9,11 @@ stores and loads, and the demangled name; then every warning nvcc or ptxas
 gave (a `setmaxnreg` that ptxas ignored, wgmma it had to serialise).
 
 `sass_ops` reads the built library's SASS (cuobjdump, from the toolkit) and
-tells which of some opcodes each kernel holds: chip_smoke.py and the card
-tests check that the bf16 forward kernels hold HGMMA (wgmma) and UTMALDG
-(TMA loads).
+counts the lines of some opcodes in each kernel: chip_smoke.py and the card
+tests check that the bf16 forward and backward kernels hold HGMMA (wgmma)
+and UTMALDG (TMA loads), and chip_smoke.py that they hold no more
+WARPGROUP.DEPBAR (a wait on the warpgroup's wgmma) than the fixed waits
+their code issues: ptxas adds one after every wgmma it serialises.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+from collections import Counter
 from typing import Dict, List
 
 from ..ops import flash
@@ -60,23 +63,25 @@ def parse(source: str, log: str) -> List[dict]:
 
 
 def sass_ops(library: pathlib.Path, name_part: str,
-             opcodes=("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA")) -> Dict[str, List[str]]:
+             opcodes=("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA", "WARPGROUP.DEPBAR")
+             ) -> Dict[str, Counter]:
     """Kernels of the built `library` whose mangled name holds `name_part`,
-    each with the `opcodes` its SASS holds."""
+    each with the count of SASS lines that hold each of the `opcodes` it
+    holds."""
     tool = pathlib.Path(flash.nvcc_path()).with_name("cuobjdump")
     out = subprocess.run([str(tool) if tool.exists() else "cuobjdump", "-sass", str(library)],
                          capture_output=True, text=True, check=True, timeout=600).stdout
-    found: Dict[str, set] = {}
+    found: Dict[str, Counter] = {}
     cur = None
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             cur = m.group(1) if name_part in m.group(1) else None
             if cur:
-                found[cur] = set()
+                found[cur] = Counter()
         elif cur:
             found[cur].update(op for op in opcodes if op in line)
-    return {name: sorted(ops) for name, ops in found.items()}
+    return found
 
 
 def main(argv=None) -> List[dict]:
