@@ -6,8 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
   card          the card's name and power limit (nvidia-smi)
   build         nvcc builds every kernel from the sources in the checkout
-  sass          the bf16 forward and backward kernels' SASS holds HGMMA
-                (wgmma), UTMALDG (TMA loads) and MUFU.EX2
+  sass          the bf16 wgmma kernels' SASS (K1's and K2's forward, T1's,
+                T2's, the backward pair) holds HGMMA (wgmma), UTMALDG (TMA
+                loads) and MUFU.EX2, and no more wgmma waits than its code
   kernel        each kernel at the main paths' shapes against its plain
                 version: K1's forward and K2 (VEXPRESS_FLASH_LITE's bf16-exp
                 forward, also against exact fp32 attention) at the inference
@@ -17,8 +18,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 and the di reduction timed beside them and stage 3's
                 backward launches reckoned; times of each kernel, its plain version, one
                 PyTorch library call (a yardstick only), K1 beside K2 on the
-                same inputs, K1's mma.sync design (T1's kernel at K1's old
-                tiling) on the same inputs at D=40, and the card's bound; at
+                same inputs, and the card's bound; at
                 the reference net's B=1 shapes also K1, K2 and the library
                 call replayed from a CUDA graph and the host's time to issue
                 one call. The log lines add the exp floor (exps over the
@@ -44,7 +44,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 --save_gpu_memory, K2 on, median filter and YUV420 output, on
                 44 synthetic 512x512 frames; then a 1-step call without
                 save_memory brings the released modules back
-  attn_variants T1 (K1's kernel at other tilings) and T2 (full-mask splash MHA)
+  attn_variants T1 (K1's forward at other tilings) and T2 (full-mask splash MHA)
                 at the attention-variant bench's shape (48, 8, 4096, 40) bf16:
                 each row against its plain version and against exact fp32
                 attention beside K1, timed beside K1, SDPA and the bound, and
@@ -204,39 +204,22 @@ def exp_floor_ms(exps: float, clock_mhz: float) -> float:
     return 1e3 * exps / (N_SMS * EX2_PER_CLK * clock_mhz * 1e6)
 
 
-def mma_sync_design(torch, q, k, v, heads):
-    """K1's mma.sync design before its redesign for Hopper, on K1's packed
-    inputs: T1's kernel (csrc/flash_variants.cu) at K1's old tiling (64 query
-    rows, 64 keys, D padded to 48, one (batch, head) a block), called on the
-    head-major views of q, k, v and its output. D=40 only. Returns a function
-    that launches it and returns the output; no launch is counted."""
-    from vexpress_torch.ops import flash
-    from vexpress_torch.ops.flash_variants import strides_arg
-
-    b, lq, inner = q.shape
-    lk, d = k.shape[1], inner // heads
-    out = torch.empty_like(q)
-    strides = strides_arg(*(t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2)
-                            for t in (q, k, v, out)))
-    lib = flash._library()
-
-    def run():
-        rc = lib.vx_flash_fwd_variant(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                                      heads, lq, lk, d, strides, float(d**-0.5), 64, 64, 48, 1,
-                                      flash._stream(q))
-        flash._raise_on(rc, "mma.sync design")
-        return out
-    return run
-
-
 # WARPGROUP.DEPBAR lines in the SASS of each bf16 wgmma kernel, forward and
 # backward: its fixed `wgmma_wait`s as ptxas lays them out on every path (5,
 # against 14-36 HGMMA; read on the H100). One more is a wgmma it serialised.
+# T1's and T2's kernels run the forward's code (one block walks its pairs in
+# a loop that is not unrolled), so theirs are the forward's 5 too.
 WGMMA_WAITS = 5
+# kernels of each bf16 wgmma family in the library (a part of their mangled
+# names): K1 and K2 at 3 head dims, T1's 9 and T2's 3 tilings, the backward
+# pair at D=40 and 80; each with at most WGMMA_WAITS fixed waits
+SASS_FAMILIES = {"flash_fwd_wgmma": 6, "flash_fwd_variant_wgmma": 9, "splash_fwd_wgmma": 3,
+                 "flash_bwd_dkv_wgmma": 2, "flash_bwd_dq_wgmma": 2}
 
 
 def sass_phase() -> dict:
-    """The built library's bf16 wgmma kernels (the forward, flash_fwd_wgmma,
+    """The built library's bf16 wgmma kernels (K1's and K2's forward,
+    flash_fwd_wgmma; T1's, flash_fwd_variant_wgmma; T2's, splash_fwd_wgmma;
     and the backward pair, flash_bwd_dkv_wgmma and flash_bwd_dq_wgmma) hold
     HGMMA and UTMALDG in their SASS, their exps are on MUFU.EX2, and each
     holds no more WARPGROUP.DEPBAR than the fixed waits its code issues
@@ -245,11 +228,11 @@ def sass_phase() -> dict:
     from vexpress_torch.tools.ptxas_report import sass_ops
 
     lib = flash.build()
-    want = {"flash_fwd_wgmma": 6, "flash_bwd_dkv_wgmma": 2, "flash_bwd_dq_wgmma": 2}
-    found = {part: sass_ops(lib, part) for part in want}
+    found = {part: sass_ops(lib, part) for part in SASS_FAMILIES}
     ok = all(len(found[p]) == n and all({"HGMMA", "UTMALDG", "MUFU.EX2"} <= set(o)
                                         and o["WARPGROUP.DEPBAR"] <= WGMMA_WAITS
-                                        for o in found[p].values()) for p, n in want.items())
+                                        for o in found[p].values())
+             for p, n in SASS_FAMILIES.items())
     for part, ops in found.items():
         log(f"[sass] {len(ops)} bf16 kernels {part}, HGMMA, UTMALDG and MUFU.EX2 in each and "
             f"at most {WGMMA_WAITS} WARPGROUP.DEPBAR: {ok}; "
@@ -394,13 +377,6 @@ def kernel_phase(torch) -> dict:
         if dtype == torch.bfloat16:
             note += (f", exp floor {exp_floor_ms(b * heads * lq * lk, clock):.3f} ms at "
                      f"{clock:.0f} MHz")
-            if d == 40:
-                old = mma_sync_design(torch, q, k, v, heads)
-                old_err = float((old().float() - exact).abs().max())
-                extra.update(mma_sync_design_ms=cuda_time_ms(torch, old),
-                             mma_sync_design_max_abs_err=old_err)
-                note += (f", mma.sync design {extra['mma_sync_design_ms']:.3f} ms (max|d| "
-                         f"{old_err:.3e})")
         bound_ms, bound_by = k1_bound_ms(b, lq, lk, inner, heads, torch.tensor([], dtype=dtype)
                                          .element_size(), PEAK_BF16 if dtype == torch.bfloat16
                                          else PEAK_FP32)
@@ -1562,15 +1538,11 @@ def kernels_line(results: dict) -> list:
                     for r in main_grad if r["launches"]["flash_fwd"]])
     inf_n, train_n = results["full"]["flash_launches"], results["train_full"]["launches"].get(
         "flash_fwd", 0)
-    ran_fwd = [r for r in fwd_rows if r["main_path"] and r["launches"]]
     sources = ["vexpress_torch/csrc/flash_fwd_wgmma.cuh (bf16)",
                "vexpress_torch/csrc/flash_fwd.cu (launch, fp32)"]
     kernels = [entry("flash_fwd", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
                      "vexpress_tpu/ops/flash.py:42", fwd_parts, inf_n + train_n, sources=sources,
                      launches_by_path=dict(full=inf_n, train_full=train_n),
-                     mma_sync_design_ms_d40=sum(r["mma_sync_design_ms"] for r in ran_fwd
-                                                if "mma_sync_design_ms" in r),
-                     ms_d40=sum(r["kernel_ms"] for r in ran_fwd if "mma_sync_design_ms" in r),
                      shapes=fwd_rows + [dict(r, kernel="flash_fwd") for r in main_grad])]
     for name, key, grads, lib_line in (
             ("flash_bwd_dkv", "dkv", ("dk", "dv"), ":941 _flash_attention_bwd_dkv"),
@@ -1609,21 +1581,24 @@ def kernels_line(results: dict) -> list:
         launches_by_path=dict(cli_full=results["cli_full"]["lite_launches"]), shapes=lite_rows))
     av = results["attn_variants"]
     for name, source, replaces, plain_is in (
-            ("flash_fwd_variant", "vexpress_torch/csrc/flash_variants.cu",
+            ("flash_fwd_variant", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
              "tools/bench_attn_variants.py:77 flash_at and :156 flash_bb, which reach the "
              "library's jax/experimental/pallas/ops/tpu/flash_attention.py:758 (pallas_call)",
              "flash_fwd_variant_reference"),
-            ("splash_fwd", "vexpress_torch/csrc/splash_fwd.cu",
+            ("splash_fwd", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
              "tools/bench_attn_variants.py:106 splash_at, which reaches the library's "
              "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py:1137 "
              "(pallas_call; body flash_attention_kernel :696)", "splash_mha_reference")):
         rows = [r for r in av["rows"] if r["kernel"] == name]
+        launcher = "flash_variants.cu" if name == "flash_fwd_variant" else "splash_fwd.cu"
         kernels.append(entry(
             name, source, replaces,
             [(r["ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
               r["max_abs_err"]) for r in rows], av["bench_launches"][name],
             times_are="sums over the bench's rows (tilings) at its shape, one call each",
             plain_is=plain_is, k1_ms=sum(r["k1_ms"] for r in rows),
+            sources=["vexpress_torch/csrc/flash_fwd_wgmma.cuh (the kernel)",
+                     f"vexpress_torch/csrc/{launcher} (its instantiations and launch)"],
             launches_by_path=dict(bench_attn_variants=av["bench_launches"][name]), rows=rows))
     return kernels
 

@@ -69,6 +69,17 @@ def test_k2_tma_kernel_tiles(dev, d, lq, lk):
     assert float((out.float() - exact).abs().max()) < 0.03
 
 
+@pytest.mark.parametrize("length,inner", [(4096, 320), (1024, 640)])  # attn1 @64², @32²
+def test_k2_relaunch_is_bitwise_equal(dev, length, inner):
+    """K2 relaunched on the same inputs gives the same bits. Its P V once
+    read its A fragments straight from the packed ex2's registers, and about
+    one relaunch in 40 to 200 at attn1 @64² then differed in one warp's rows."""
+    q, k, v = _qkv(dev, 48, length, length, inner, torch.bfloat16, seed=7)
+    first = flash.flash_sdpa(q, k, v, 8)
+    differ = sum(not torch.equal(flash.flash_sdpa(q, k, v, 8), first) for _ in range(200))
+    assert differ == 0, f"{differ} of 200 relaunches differ from the first"
+
+
 def test_k2_with_gradient_raises(dev):
     q, k, v = _qkv(dev, 1, 512, 512, 80, torch.bfloat16)
     with pytest.raises(ValueError, match="VEXPRESS_FLASH_LITE"):

@@ -18,7 +18,8 @@
 // matrix products, set the real floor, and at D=80 the two are about equal.
 //
 // Design against that bound:
-// * bf16: flash_fwd_wgmma (flash_fwd_wgmma.cuh), one block of a TMA producer
+// * bf16: flash_fwd_wgmma (flash_fwd_wgmma.cuh, the template that T1 and T2
+//   share at other tilings), one block of a TMA producer
 //   warpgroup and two wgmma consumer warpgroups per (128 query rows, batch,
 //   head), K/V tiles of 64 keys (128 at D=80) in a 3-stage mbarrier ring,
 //   two blocks an SM at D=40; in each warpgroup the softmax of one key tile
@@ -150,23 +151,11 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 template <int D, bool LITE, int SW>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int H, int Lq,
                  int Lk, const long long* geom, float scale, cudaStream_t s) {
-  using T = WgmmaTile<D, SW>;
-  if (geom[0] != SW || geom[1] != T::CW || geom[2] != WG_BQ || geom[3] != T::BK ||
-      geom[6] != T::SMEM || geom[4] != (Lq + WG_BQ - 1) / WG_BQ || geom[5] <= 0 ||
-      geom[5] > 65535)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  int rc = encode(&tq, q, geom + 7, geom + 11, T::CW, WG_BQ, SW);
-  if (rc == 0) rc = encode(&tk, k, geom + 14, geom + 18, T::CW, T::BK, SW);
-  if (rc == 0) rc = encode(&tv, v, geom + 14, geom + 18, T::CW, T::BK, SW);
-  if (rc != 0) return rc;
-  const auto kernel = flash_fwd_wgmma<D, LITE, SW>;
+  using T = K1Tile<D, SW>;
   static std::atomic<unsigned long long> smem_set{0};
-  rc = set_smem_once(kernel, T::SMEM, smem_set);
-  if (rc != 0) return rc;
-  kernel<<<dim3((unsigned)geom[4], (unsigned)geom[5]), WG_THREADS, T::SMEM, s>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, scale);
-  return (int)cudaGetLastError();
+  const FwdArgs a{H, Lq, Lk, 0, scale, (long long)Lq * H * D, D, (long long)H * D};
+  constexpr PMode P = LITE ? PMode::LITE : PMode::ROUND;
+  return launch_fwd<T>(flash_fwd_wgmma<T, P>, smem_set, q, k, v, o, lse, geom, a, s);
 }
 
 // the (D, swizzle bytes) instantiations, K1's and K2's: 128-byte swizzle at
@@ -245,8 +234,8 @@ int vx_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void*
 int vx_flash_fwd_tile(int D, long long* out) {
 #define VX_TILE(D_, SW_)                                                                     \
   if (D == D_) {                                                                             \
-    using T = WgmmaTile<D_, SW_>;                                                            \
-    const long long t[8] = {SW_, T::CW, WG_BQ, T::BK, T::MINB, T::SMEM, WG_THREADS,          \
+    using T = K1Tile<D_, SW_>;                                                               \
+    const long long t[8] = {SW_, T::CW, T::BQ, T::BK, T::MINB, T::SMEM, T::THREADS,          \
                             T::STAGES};                                                      \
     for (int i = 0; i < 8; ++i) out[i] = t[i];                                               \
     return 0;                                                                                \

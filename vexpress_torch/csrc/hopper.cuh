@@ -150,6 +150,18 @@ __device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 64) += A (64 x 16, bf16 fragments in registers) B (16 x 64, MN-major in smem)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d (64 x 80) += A (64 x 16, bf16 fragments in registers) B (16 x 80, MN-major in smem)
 __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -160,6 +172,20 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
       "%32, %33, %34, %35, %36, %37, %38, %39"
       "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
       : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24), VX_F8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 16, bf16 fragments in registers) B (16 x 128, MN-major in smem)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24), VX_F8(32), VX_F8(40), VX_F8(48), VX_F8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -185,10 +211,14 @@ template <int NV>
 __device__ __forceinline__ void wgmma_rs(float (&d)[NV / 2], const uint32_t (&a)[4], uint64_t b) {
   if constexpr (NV == 48) {
     wgmma_rs_n48(d, a, b);
+  } else if constexpr (NV == 64) {
+    wgmma_rs_n64(d, a, b);
   } else if constexpr (NV == 80) {
     wgmma_rs_n80(d, a, b);
+  } else if constexpr (NV == 128) {
+    wgmma_rs_n128(d, a, b);
   } else {
-    static_assert(NV == 160, "head dims 40, 80, 160");
+    static_assert(NV == 160, "product head dims 48, 64, 80, 128, 160");
     wgmma_rs_n160(d, a, b);
   }
 }
@@ -222,17 +252,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D bf16 map: dims (D, H, L, B), byte strides of dims 1..3, box
-// (cols, 1, rows, 1), zeros past the tensor's bounds.
+// A 4-D bf16 map: dims (D, H, L, B), or (D, L, H, B) with `row_dim` 1, byte
+// strides of dims 1..3, box (cols, 1, rows, 1), or (cols, rows, 1, 1) with
+// `row_dim` 1, zeros past the tensor's bounds.
 inline int encode(CUtensorMap* map, const void* base, const long long* dims,
-                  const long long* strides, int cols, int rows, int sw) {
+                  const long long* strides, int cols, int rows, int sw, int row_dim = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
   const cuuint64_t gdim[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1], (cuuint64_t)dims[2],
                               (cuuint64_t)dims[3]};
   const cuuint64_t gstride[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
                                  (cuuint64_t)strides[2]};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, row_dim == 1 ? (cuuint32_t)rows : 1,
+                             row_dim == 1 ? 1 : (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B

@@ -11,7 +11,8 @@ through TMA and wgmma, `csrc/flash_bwd_wgmma.cuh`, with its host geometry in
 built by nvcc into one plain-C shared library under `vexpress_torch/_build/`
 at first use and called through ctypes. The same library holds the
 attention-variant bench's kernels T1 and T2 (`ops/flash_variants.py`,
-`ops/splash.py`), on K1's first, mma.sync design, `csrc/flash_fwd_mma.cuh`.
+`ops/splash.py`): the bf16 forward of `csrc/flash_fwd_wgmma.cuh` at the
+bench's tilings, with their geometry in `flash_tma.py` too.
 
 `flash_sdpa` sends CUDA tensors to the kernels and CPU tensors to
 `flash_sdpa_reference`, the same function in plain torch, which autograd
@@ -136,10 +137,15 @@ def _library():
             lib.vx_flash_bwd_dq_tma.restype = i
             lib.vx_flash_bwd_tile.argtypes = [i, p]
             lib.vx_flash_bwd_tile.restype = i
-            lib.vx_flash_fwd_variant.argtypes = [p, p, p, p, i, i, i, i, i, p, f, i, i, i, i, p]
+            lib.vx_flash_fwd_variant.argtypes = [p, p, p, p, i, i, i, i, i, p, p, f, i, i, i, i,
+                                                 p]
             lib.vx_flash_fwd_variant.restype = i
-            lib.vx_splash_mha_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p, i, i, i, p]
+            lib.vx_flash_fwd_variant_tile.argtypes = [i, i, i, i, p]
+            lib.vx_flash_fwd_variant_tile.restype = i
+            lib.vx_splash_mha_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p, p, i, i, i, p]
             lib.vx_splash_mha_fwd.restype = i
+            lib.vx_splash_mha_tile.argtypes = [i, i, i, p]
+            lib.vx_splash_mha_tile.restype = i
             lib.vx_error_string.argtypes = [i]
             lib.vx_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -279,20 +285,23 @@ _tiles_checked = set()
 _bwd_tiles_checked = set()
 
 
-def _check_tiling(lib, d: int, entry: str, fields, host_tile, checked: set, what: str) -> None:
-    """Before the first bf16 launch at head dim d: the library's tiling (its
-    `entry`) must be flash_tma's (`host_tile`), from which the launch geometry
-    is computed. A d with no instantiation is left to the launch to refuse."""
-    if d in checked:
+def _check_tiling(lib, key, entry: str, fields, host_tile, checked: set, what: str) -> None:
+    """Before the first bf16 launch at `key` (a head dim, or a tuple such as
+    T1's tiling): the library's tiling (its `entry`, called with the key's
+    values) must be flash_tma's (`host_tile(*key)`), from which the launch
+    geometry is computed. A key with no instantiation is left to the launch
+    to refuse."""
+    if key in checked:
         return
+    args = key if isinstance(key, tuple) else (key,)
     out = (ctypes.c_longlong * len(fields))()
-    if getattr(lib, entry)(d, out) != 0:
+    if getattr(lib, entry)(*args, out) != 0:
         return
-    built, host = dict(zip(fields, out)), host_tile(d)
+    built, host = dict(zip(fields, out)), host_tile(*args)
     if built != host:
-        raise RuntimeError(f"flash {what} at D={d}: the library's tiling {built} is not "
-                           f"ops/flash_tma.py's {host}")
-    checked.add(d)
+        raise RuntimeError(f"flash {what} at {'D=' if len(args) == 1 else ''}{key}: the library's "
+                           f"tiling {built} is not ops/flash_tma.py's {host}")
+    checked.add(key)
 
 
 def _check_tile(lib, d: int) -> None:

@@ -13,6 +13,15 @@ rows is one box. A box is (CW, 1, rows, 1): CW = swizzle / 2 bf16 columns,
 128 rows of q, `tile_k` rows of k and v. The kernel cuts the head dim into
 ceil(NV / CW) such chunks, NV = D rounded up to the wgmma depth 16; TMA reads zeros past D.
 
+T1 and T2 (csrc/flash_variants.cu, csrc/splash_fwd.cu) are the same kernel at
+the attention-variant bench's tilings (`T1_TILES`, `T2_TILES`) over (B, H,
+L, D) tensors. `variant_geometry` maps each tensor in its own memory order:
+(D, L, H, B) for a contiguous one, (D, H, L, B) for a head-major view of a
+packed (B, L, H*D) one, so the byte strides always rise with the dimension;
+`row_dim` says where the rows are, and the kernel orders its box coordinates
+by it. `variant_tile` is what the library reports through
+`vx_flash_fwd_variant_tile` and `vx_splash_mha_tile`.
+
 The backward's kernels (csrc/flash_bwd_wgmma.cuh, bf16 at D=40 and 80) read
 the same 4-D views in boxes of 64 rows (`bwd_geometry`), with the tiling
 `bwd_tile` that csrc/flash_bwd_wgmma.cuh's BwdTile sets and
@@ -58,14 +67,19 @@ def blocks_per_sm(d: int) -> int:
     return 2 if d == 40 else 1
 
 
+def _fwd_smem(nv: int, swizzle: int, tile_q: int, tile_k: int, stages: int, q_buffers: int) -> int:
+    """WgmmaTile::SMEM: `q_buffers` Q tiles, `stages` stages of K and V, each
+    cut into ceil(nv / (swizzle / 2)) chunks, the mbarriers, and 1024 bytes
+    to align the base to the 128-byte swizzle's period."""
+    chunks = -(-nv // (swizzle // 2))
+    return (q_buffers * chunks * tile_q * swizzle + 2 * stages * chunks * tile_k * swizzle
+            + 8 * (2 * stages + q_buffers) + 1024)
+
+
 def smem_bytes(d: int, swizzle: int) -> int:
-    """Dynamic shared memory of one block: the Q tile, STAGES stages of K and
-    V, the mbarriers, and 1024 bytes to align the base to the 128-byte
-    swizzle's period (WgmmaTile::SMEM)."""
-    chunks = -(-padded_head_dim(d) // (swizzle // 2))
-    q = chunks * TILE_Q * swizzle
-    kv = chunks * tile_k(d) * swizzle
-    return q + 2 * STAGES * kv + 8 * (2 * STAGES + 1) + 1024
+    """Dynamic shared memory of one block of K1's forward: the Q tile,
+    STAGES stages of K and V, the mbarriers and the alignment slack."""
+    return _fwd_smem(padded_head_dim(d), swizzle, TILE_Q, tile_k(d), STAGES, 1)
 
 
 def tile(d: int) -> dict:
@@ -98,13 +112,22 @@ def fwd_geometry(b: int, lq: int, lk: int, heads: int, d: int) -> dict:
                 blocks_per_sm=t["blocks_per_sm"])
 
 
+def _instantiated(geom: dict) -> bool:
+    """Whether some instantiation of geom's kernel has its head dim and swizzle."""
+    d, sw, kernel = geom["head_dim"], geom["swizzle"], geom["kernel"]
+    if kernel in VARIANT_TILES:
+        return d == VARIANT_HEAD_DIM and sw == VARIANT_SWIZZLE
+    return (SWIZZLE if kernel == "fwd" else BWD_SWIZZLE).get(d) == sw
+
+
 def tma_violations(geom: dict) -> List[str]:
     """What breaks cuTensorMapEncodeTiled's rules or the kernel's limits, as
-    messages (none for a launch the kernel can take)."""
+    messages (none for a launch the kernel can take). The maps' byte strides
+    must also rise with the dimension (each map is in its tensor's memory
+    order)."""
     bad = []
     sw = geom["swizzle"]
-    table = SWIZZLE if geom["kernel"] == "fwd" else BWD_SWIZZLE
-    if table.get(geom["head_dim"]) != sw:
+    if not _instantiated(geom):
         bad.append(f"no instantiation for D={geom['head_dim']} at swizzle {sw}")
     for name in ("q", "kv"):
         m = geom[name]
@@ -112,6 +135,9 @@ def tma_violations(geom: dict) -> List[str]:
             bad.append(f"{name}: dims {m['dims']} outside (0, 2^32)")
         if any(s % 16 or not 0 < s < 2**40 for s in m["strides"]):
             bad.append(f"{name}: byte strides {m['strides']} not multiples of 16 below 2^40")
+        if list(m["strides"]) != sorted(m["strides"]) or m["strides"][0] < m["dims"][0] * ELEM:
+            bad.append(f"{name}: byte strides {m['strides']} do not rise with the dimension "
+                       f"(not the tensor's memory order)")
         if any(not 0 < n <= 256 for n in m["box"]):
             bad.append(f"{name}: box {m['box']} outside (0, 256]")
         row_bytes = m["box"][0] * ELEM
@@ -123,7 +149,14 @@ def tma_violations(geom: dict) -> List[str]:
                    f"{geom['blocks_per_sm']} blocks an SM, above {SMEM_LIMIT}")
     if not 0 < geom["grid"][1] <= 65535:
         bad.append(f"grid y {geom['grid'][1]} outside (0, 65535]")
-    if geom["kernel"] != "fwd":
+    if geom["kernel"] in VARIANT_TILES:
+        bq, bk, _, hb = geom["tiling"]
+        b, h, lq, lk = geom["shape"]
+        if lq % bq or lk % bk:
+            bad.append(f"Lq={lq}, Lk={lk} not whole tiles of {bq} queries and {bk} keys")
+        if (b * h) % hb:
+            bad.append(f"B*H={b * h} not whole blocks of {hb} (batch, head) pairs")
+    elif geom["kernel"] != "fwd":
         walked = geom["q"]["dims"][2] // BWD_ROWS  # query tiles the dk/dv parts share
         if not 1 <= geom["grid"][2] <= (walked if geom["kernel"] == "dkv" else 1):
             bad.append(f"{geom['grid'][2]} parts of {walked} query tiles")
@@ -135,10 +168,92 @@ def tma_violations(geom: dict) -> List[str]:
 def geometry_arg(geom: dict):
     """The int64 array `vx_flash_fwd_tma` reads: swizzle, box columns, box
     rows of q and of k/v, grid x and y, shared memory, q's dims and byte
-    strides, k's dims and byte strides."""
+    strides, k's dims and byte strides (each map's dims in its own order)."""
     q, kv = geom["q"], geom["kv"]
-    vals = [geom["swizzle"], q["box"][0], q["box"][2], kv["box"][2], *geom["grid"],
-            geom["smem"], *q["dims"], *q["strides"], *kv["dims"], *kv["strides"]]
+    vals = [geom["swizzle"], q["box"][0], q["box"][q.get("row_dim", 2)],
+            kv["box"][kv.get("row_dim", 2)], *geom["grid"], geom["smem"], *q["dims"],
+            *q["strides"], *kv["dims"], *kv["strides"]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+# ----------------------------------------------------------------- T1, T2
+VARIANT_HEAD_DIM = 40  # the bench's head dim, the only one instantiated
+VARIANT_SWIZZLE = 128  # 64-column chunks: one at a product head dim of 48 or 64, two at 128
+# (block_q, block_k, product head dim, heads_per_block) -> (blocks_per_sm,
+# stages) of each T1 instantiation (csrc/flash_variants.cu's VX_T1_ROWS): two
+# blocks an SM (three or four 64-row blocks were no faster, PERF.md §6) with
+# the deepest ring that fits them: 6 stages at 64 keys, 5 beside Q's second
+# buffer, 2 at 128 keys or 128 product columns, K1's 3 at 128 query rows
+T1_TILES = {(64, 64, 48, 1): (2, 6), (64, 64, 64, 1): (2, 6), (64, 64, 128, 1): (2, 2),
+            (64, 64, 48, 2): (2, 5), (128, 64, 48, 2): (2, 3), (64, 128, 48, 2): (2, 2),
+            (64, 64, 48, 4): (2, 5), (128, 64, 48, 4): (2, 3), (64, 128, 48, 4): (2, 2)}
+# (block_q, block_kv, product head dim) -> (blocks_per_sm, stages) of each T2
+# instantiation (csrc/splash_fwd.cu's VX_T2_ROWS): as T1's at 64 query rows;
+# at 128 rows and 128 keys one block, whose consumers hold P's two fragments
+# in 240 registers
+T2_TILES = {(64, 64, 48): (2, 6), (64, 64, 64): (2, 6), (128, 128, 48): (1, 3)}
+VARIANT_TILES = {"t1": T1_TILES, "t2": T2_TILES}
+# what `variant_tile` returns, in the order of vx_flash_fwd_variant_tile and
+# vx_splash_mha_tile
+VARIANT_TILE_FIELDS = ("tile_q", "tile_k", "d_pad", "heads_per_block", "swizzle", "box_cols",
+                       "blocks_per_sm", "stages", "smem", "threads")
+
+
+def _tiling4(kind: str, tiling: tuple) -> tuple:
+    """(block_q, block_k, d_pad, heads_per_block): T2's tilings have one pair a block."""
+    return tuple(tiling) if kind == "t1" else tuple(tiling) + (1,)
+
+
+def variant_tile(kind: str, tiling: tuple) -> dict:
+    """The tiling of T1's (`kind` "t1") or T2's ("t2") instantiation at
+    `tiling` (a key of T1_TILES or T2_TILES), keyed by VARIANT_TILE_FIELDS.
+    A tiling with no instantiation gets one block an SM and 3 stages, and is
+    left to the launch to refuse."""
+    bq, bk, nv, hb = _tiling4(kind, tiling)
+    minb, stages = VARIANT_TILES[kind].get(tuple(tiling), (1, 3))
+    return dict(tile_q=bq, tile_k=bk, d_pad=nv, heads_per_block=hb, swizzle=VARIANT_SWIZZLE,
+                box_cols=VARIANT_SWIZZLE // 2, blocks_per_sm=minb, stages=stages,
+                smem=_fwd_smem(nv, VARIANT_SWIZZLE, bq, bk, stages, 2 if hb > 1 else 1),
+                threads=128 * (bq // 64 + 1))
+
+
+def strided_map(b: int, heads: int, length: int, d: int, strides: tuple, rows: int,
+                swizzle: int) -> dict:
+    """The map of a (B, H, L, D) tensor with element strides `strides` of
+    (batch, head, row) and a contiguous head dim, in its memory order: (D, L,
+    H, B) where rows lie closer than heads (row_dim 1), else (D, H, L, B)
+    (row_dim 2); the box (swizzle / 2 columns, `rows` rows) in the same order."""
+    sb, sh, sl = strides
+    cols = swizzle // 2
+    if sl < sh:
+        return dict(dims=(d, length, heads, b), strides=(sl * ELEM, sh * ELEM, sb * ELEM),
+                    box=(cols, rows, 1, 1), row_dim=1)
+    return dict(dims=(d, heads, length, b), strides=(sh * ELEM, sl * ELEM, sb * ELEM),
+                box=(cols, 1, rows, 1), row_dim=2)
+
+
+def variant_geometry(kind: str, tiling: tuple, b: int, heads: int, lq: int, lk: int, d: int,
+                     q_strides: tuple, kv_strides: tuple) -> dict:
+    """Everything the host sets for one launch of T1 (`kind` "t1") or T2
+    ("t2") at `tiling` over (B, H, L, D) tensors: q's and k/v's maps from
+    their (batch, head, row) element strides, grid (ceil(Lq / block_q),
+    B*H / heads_per_block), threads, shared memory, blocks per SM."""
+    t = variant_tile(kind, tiling)
+    sw, nv = t["swizzle"], t["d_pad"]
+    return dict(kernel=kind, tiling=_tiling4(kind, tiling), shape=(b, heads, lq, lk),
+                swizzle=sw, head_dim=d, padded_head_dim=nv, chunks=-(-nv // t["box_cols"]),
+                q=strided_map(b, heads, lq, d, q_strides, t["tile_q"], sw),
+                kv=strided_map(b, heads, lk, d, kv_strides, t["tile_k"], sw),
+                grid=(-(-lq // t["tile_q"]), b * heads // t["heads_per_block"]),
+                threads=t["threads"], smem=t["smem"], blocks_per_sm=t["blocks_per_sm"])
+
+
+def variant_geometry_arg(geom: dict):
+    """The int64 array `vx_flash_fwd_variant` and `vx_splash_mha_fwd` read:
+    `geometry_arg`'s 21 values, then the order bits (1: q's map has its rows
+    in dim 1; 2: k's and v's)."""
+    order = (geom["q"]["row_dim"] == 1) | 2 * (geom["kv"]["row_dim"] == 1)
+    vals = [*geometry_arg(geom), order]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 

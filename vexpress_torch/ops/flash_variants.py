@@ -3,10 +3,12 @@
 Counterpart of tools/bench_attn_variants.py's `flash_at` and `flash_bb`,
 which run the JAX library's Pallas TPU `flash_attention` at other
 `BlockSizes` (block_b 1, 2, 4; block_q and block_k 512 to 2048) and with the
-head dim zero-padded to 64 or 128. On the card the kernel is K1's
-`flash_fwd_mma` with its tiling as template parameters (csrc/flash_variants.cu,
-`vx_flash_fwd_variant`; the source note there says what bounds it and what
-the tiling does); this module holds the wrapper and the plain version.
+head dim zero-padded to 64 or 128. On the card the kernel is K1's bf16
+forward (csrc/flash_fwd_wgmma.cuh: TMA, an mbarrier ring, wgmma) with its
+tiling as template parameters (csrc/flash_variants.cu, `vx_flash_fwd_variant`;
+the source note there says what bounds it and what the tiling does), its
+launch geometry from `flash_tma.variant_geometry`; this module holds the
+wrapper and the plain version.
 
 What T1 computes, per (batch, head) over (B, H, L, D) tensors, is the
 library forward's function: s = q k^T in fp32 times `scale`; fp32 running max
@@ -20,20 +22,21 @@ instantiation and leaves the function as it is.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
-from .flash import _library, _raise_on, _stream
+from . import flash_tma
+from .flash import _check_tiling, _library, _raise_on, _stream
 from .launches import counts, shapes
 
-HEAD_DIM = 40  # the bench's head dim, the only one instantiated
+HEAD_DIM = flash_tma.VARIANT_HEAD_DIM  # the bench's head dim, the only one instantiated
 # (block_q, block_k, padded head dim, heads_per_block) of every instantiation
 # in csrc/flash_variants.cu
-TILINGS = frozenset({(64, 64, 48, 1), (64, 64, 64, 1), (64, 64, 128, 1),
-                     (64, 64, 48, 2), (128, 64, 48, 2), (64, 128, 48, 2),
-                     (64, 64, 48, 4), (128, 64, 48, 4), (64, 128, 48, 4)})
+TILINGS = frozenset(flash_tma.T1_TILES)
 _LOGIT_BUDGET = 1 << 28  # fp32 (B, H, chunk, block_k) logits per query chunk
+_tiles_checked = {"t1": set(), "t2": set()}  # tilings whose library tile was checked
 
 
 def padded_head_dim(d: int, d_target: Optional[int]) -> int:
@@ -57,21 +60,57 @@ def check_bhld(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 def check_kernel_tensors(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the T1 and T2 kernels take besides their tiling: bf16, D = 40,
-    contiguous 16-byte aligned tensors on one CUDA device."""
+    """What the T1 and T2 kernels take besides their tiling and the maps'
+    rules (`flash_tma.tma_violations`): bf16, D = 40, 16-byte aligned
+    tensors with a contiguous head dim on one CUDA device, k and v of one
+    layout. (B, H, L, D) tensors and head-major views of packed (B, L, H*D)
+    ones both qualify."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name} kernel takes bfloat16, got {q.dtype}")
     if q.shape[3] != HEAD_DIM:
         raise ValueError(f"{name} kernel is instantiated for head dim {HEAD_DIM}, got {q.shape[3]}")
     for t_name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} kernel needs contiguous 16-byte aligned tensors ({t_name})")
+        if t.stride(3) != 1 or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel needs 16-byte aligned tensors with a contiguous "
+                             f"head dim ({t_name})")
+    if k.stride() != v.stride():
+        raise ValueError(f"{name} kernel needs k and v of one layout, got strides {k.stride()} "
+                         f"and {v.stride()}")
 
 
 def strides_arg(*tensors: torch.Tensor):
     """(batch, head, row) element strides of each tensor, as the kernels read them."""
     st = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(st))(*st)
+
+
+@functools.lru_cache(maxsize=256)
+def _variant_geometry(name: str, kind: str, tiling: tuple, shape: tuple, q_strides: tuple,
+                      kv_strides: tuple):
+    """flash_tma's geometry of one T1 (`kind` "t1") or T2 ("t2") launch, as
+    the library reads it, once per tiling, shape and layout; raises where TMA
+    or the kernel cannot take it."""
+    geom = flash_tma.variant_geometry(kind, tiling, *shape, q_strides, kv_strides)
+    bad = flash_tma.tma_violations(geom)
+    if bad:
+        raise ValueError(f"{name} kernel cannot take this launch: " + "; ".join(bad))
+    return flash_tma.variant_geometry_arg(geom)
+
+
+def launch_geometry(name: str, kind: str, tiling: tuple, q: torch.Tensor, k: torch.Tensor):
+    """The geometry argument of a T1 or T2 launch over q and k (v has k's layout)."""
+    b, h, lq, d = q.shape
+    return _variant_geometry(name, kind, tiling, (b, h, lq, k.shape[2], d), q.stride()[:3],
+                             k.stride()[:3])
+
+
+def check_library_tile(lib, kind: str, tiling: tuple) -> None:
+    """Before the first launch at `tiling`: the library's instantiation
+    (vx_flash_fwd_variant_tile or vx_splash_mha_tile) has flash_tma's tiling."""
+    entry, what = (("vx_flash_fwd_variant_tile", "T1 variant forward") if kind == "t1"
+                   else ("vx_splash_mha_tile", "T2 splash forward"))
+    _check_tiling(lib, tuple(tiling), entry, flash_tma.VARIANT_TILE_FIELDS,
+                  lambda *t: flash_tma.variant_tile(kind, t), _tiles_checked[kind], what)
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -125,7 +164,8 @@ def flash_fwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: 
 
     CUDA tensors launch csrc/flash_variants.cu on the current stream: bf16,
     D = 40, (block_q, block_k, padded head dim, heads_per_block) in `TILINGS`,
-    block_q | Lq, block_k | Lk, heads_per_block | B*H; anything else on the
+    block_q | Lq, block_k | Lk, heads_per_block | B*H, each tensor contiguous
+    or a head-major view of a packed (B, L, H*D) one; anything else on the
     card raises. CPU tensors run `flash_fwd_variant_reference` with key
     blocks of `block_k`."""
     check_bhld("flash_fwd_variant", q, k, v)
@@ -139,15 +179,13 @@ def flash_fwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: 
     if tiling not in TILINGS:
         raise ValueError(f"flash_fwd_variant has no instantiation for (block_q, block_k, "
                          f"padded D, heads_per_block) = {tiling}; it has {sorted(TILINGS)}")
-    if lq % block_q or lk % block_k or (b * h) % heads_per_block:
-        raise ValueError(f"flash_fwd_variant: block_q={block_q} must divide Lq={lq}, "
-                         f"block_k={block_k} Lk={lk}, heads_per_block={heads_per_block} "
-                         f"B*H={b * h}")
-    out = torch.empty_like(q)
+    geom = launch_geometry("flash_fwd_variant", "t1", tiling, q, k)
+    out = torch.empty_like(q)  # a head-major view's layout, for a packed q
     lib = _library()
+    check_library_tile(lib, "t1", tiling)
     with torch.cuda.device(q.device):
         rc = lib.vx_flash_fwd_variant(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      b, h, lq, lk, d, strides_arg(q, k, v, out), float(scale),
+                                      b, h, lq, lk, d, geom, strides_arg(out), float(scale),
                                       block_q, block_k, dp, heads_per_block, _stream(q))
     _raise_on(rc, "T1 variant forward")
     counts["flash_fwd_variant"] += 1

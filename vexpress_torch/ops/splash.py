@@ -4,10 +4,11 @@ bench's splash rows).
 Counterpart of tools/bench_attn_variants.py's `splash_at`, which runs the JAX
 library's Pallas TPU splash attention (`make_splash_mha` over a
 `MultiHeadMask` of `FullMask` per head), vmapped over the batch, on q already
-multiplied by the scale. On the card the kernel is `flash_fwd_mma` with
-P_SPLIT (csrc/splash_fwd.cu, `vx_splash_mha_fwd`; the source note there says
-what bounds it and how it keeps p unrounded); this module holds the wrapper
-and the plain version.
+multiplied by the scale. On the card the kernel is K1's bf16 forward
+(csrc/flash_fwd_wgmma.cuh) in P mode SPLIT (csrc/splash_fwd.cu,
+`vx_splash_mha_fwd`; the source note there says what bounds it and how it
+keeps p unrounded), its launch geometry from `flash_tma.variant_geometry`;
+this module holds the wrapper and the plain version.
 
 What T2 computes, per (batch, head) over (B, H, L, D) tensors
 (splash_attention_kernel.py:696-843 of the library): s = q k^T in fp32 with no
@@ -23,13 +24,14 @@ from typing import Optional
 
 import torch
 
+from . import flash_tma
 from .flash import _library, _raise_on, _stream
 from .flash_variants import (blocked_attention, check_bhld, check_kernel_tensors,
-                             padded_head_dim, strides_arg)
+                             check_library_tile, launch_geometry, padded_head_dim, strides_arg)
 from .launches import counts, shapes
 
 # (block_q, block_kv, padded head dim) of every instantiation in csrc/splash_fwd.cu
-TILINGS = frozenset({(64, 64, 48), (64, 64, 64), (128, 128, 48)})
+TILINGS = frozenset(flash_tma.T2_TILES)
 
 
 def splash_mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,7 +50,8 @@ def splash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, block_q
 
     CUDA tensors launch csrc/splash_fwd.cu on the current stream: bf16, D =
     40, (block_q, block_kv, padded head dim) in `TILINGS`, block_q | Lq,
-    block_kv | Lk; anything else on the card raises. CPU tensors run
+    block_kv | Lk, each tensor contiguous or a head-major view of a packed
+    (B, L, H*D) one; anything else on the card raises. CPU tensors run
     `splash_mha_reference` with key blocks of `block_kv`."""
     check_bhld("splash_mha_fwd", q, k, v)
     b, h, lq, d = q.shape
@@ -61,14 +64,13 @@ def splash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, block_q
     if tiling not in TILINGS:
         raise ValueError(f"splash_mha_fwd has no instantiation for (block_q, block_kv, padded D) "
                          f"= {tiling}; it has {sorted(TILINGS)}")
-    if lq % block_q or lk % block_kv:
-        raise ValueError(f"splash_mha_fwd: block_q={block_q} must divide Lq={lq} and "
-                         f"block_kv={block_kv} Lk={lk}")
-    out = torch.empty_like(q)
+    geom = launch_geometry("splash_mha_fwd", "t2", tiling, q, k)
+    out = torch.empty_like(q)  # a head-major view's layout, for a packed q
     lib = _library()
+    check_library_tile(lib, "t2", tiling)
     with torch.cuda.device(q.device):
         rc = lib.vx_splash_mha_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-                                   lq, lk, d, strides_arg(q, k, v, out), block_q, block_kv, dp,
+                                   lq, lk, d, geom, strides_arg(out), block_q, block_kv, dp,
                                    _stream(q))
     _raise_on(rc, "T2 splash forward")
     counts["splash_fwd"] += 1
