@@ -30,6 +30,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   train_parity  the same reduced-depth models in fp32 at stage 3: loss and
                 gradients, then 2 AdamW and 2 8-bit-Adam train steps, on the
                 card against the CPU
+  lora_parity   the same models at stage 2 with LoRA (rank 2, alpha 4, every
+                default target of the denoising UNet): loss and factor
+                gradients, then 2 build_lora_train_step steps, card against
+                CPU; then the adapter exported after step 2 merged as the
+                inference CLI's --lora_path merges it, and parity's CLI run
+                on both
   full          the streamed pipeline at full SD1.5 width in bf16 at 512x512
                 with seeded random weights; checks the output and the kernel
                 launches
@@ -38,6 +44,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                 weights; checks losses, frozen and moved parameters, and the
                 kernel launches by shape against those reckoned from the
                 stage's trainability
+  train_cli     the training CLI (vexpress_torch.cli.train.train) at full
+                SD1.5 width: stage 2's values plus a lora section (rank 8,
+                alpha 8), bf16, 20 frames at 512x512, 4 steps from synthetic
+                batches, checkpoints every 2 steps; checks the losses, the
+                files, the restore of checkpoint-4 against the live state,
+                the adapter's merge card against CPU, and K1's launches by
+                shape against those reckoned
   cli_full      the inference CLI's build_pipeline with its defaults (SD1.5
                 geometry, bf16, absent checkpoints so seeded random weights)
                 and generate with --sampler dpmpp_2m --num_inference_steps 12
@@ -830,17 +843,21 @@ def parity_setup(torch):
     """The reduced models on the card and on the CPU with the same seeded
     weights, and the keyword arguments of one call on both: fp32 256x256, 12
     frames in 8-frame windows, CFG 2.0, 2 steps, the same inputs and noise."""
+    card, cpu = card_and_cpu_pipelines(torch, seed=11)
+    return card, cpu, parity_call_kwargs()
+
+
+def parity_call_kwargs() -> dict:
+    """parity_setup's keyword arguments of one call."""
     import numpy as np
 
     H = W = 256
     L, ctx, ovl, steps = 12, 8, 4, 2
-    card, cpu = card_and_cpu_pipelines(torch, seed=11)
     ref, kps, wave = synthetic_inputs(H, W, L, seed=5)
     noise = np.random.default_rng(6).standard_normal((L, H // 8, W // 8, 4)).astype(np.float32)
-    kw = dict(reference_image=ref, kps_images=kps, audio_waveform=wave, width=W, height=H,
-              video_length=L, num_inference_steps=steps, guidance_scale=2.0,
-              context_frames=ctx, context_overlap=ovl, latents=noise)
-    return card, cpu, kw
+    return dict(reference_image=ref, kps_images=kps, audio_waveform=wave, width=W, height=H,
+                video_length=L, num_inference_steps=steps, guidance_scale=2.0,
+                context_frames=ctx, context_overlap=ovl, latents=noise)
 
 
 def parity_phase(torch) -> dict:
@@ -1083,7 +1100,7 @@ def _shape_key(row) -> tuple:
 
 
 # configs/stage_2.yaml's training values, written out (the card's machine has
-# no yaml parser); routed into a TrainConfig as cli/train.py routes the YAML
+# no yaml parser); routed into a TrainConfig by the training CLI's train_config
 STAGE_2 = {
     "train_stage": "stage_2",
     "data": {"train_bs": 1, "train_width": 512, "train_height": 512, "num_frames": TRAIN_FRAMES,
@@ -1098,35 +1115,6 @@ STAGE_2 = {
     "uncond_ratio": 0.1, "noise_offset": 0.05, "snr_gamma": 5.0, "enable_zero_snr": True,
 }
 TRAIN_STEPS = 5
-
-
-def train_config(cfg: dict):
-    """TrainConfig from a training YAML's dict, as cli/train.py builds it."""
-    from vexpress_torch.train import TrainConfig
-    from vexpress_torch.train.config import effective_learning_rate, validate_config
-
-    validate_config(cfg)
-    data, mt, solver = cfg["data"], cfg["module_training"], cfg["solver"]
-    return TrainConfig(
-        train_stage=cfg["train_stage"], num_frames=data["num_frames"],
-        train_denoising_unet=mt["denoising_unet"], train_reference_net=mt["reference_net"],
-        train_v_kps_guider=mt["v_kps_guider"], train_audio_projection=mt["audio_projection"],
-        train_motion_module=mt["motion_module"],
-        learning_rate=effective_learning_rate(cfg, 1),
-        adam_beta1=float(solver["adam_beta1"]), adam_beta2=float(solver["adam_beta2"]),
-        adam_weight_decay=float(solver["adam_weight_decay"]),
-        adam_epsilon=float(solver["adam_epsilon"]), max_grad_norm=float(solver["max_grad_norm"]),
-        gradient_accumulation_steps=int(solver.get("gradient_accumulation_steps", 1)),
-        lr_scheduler=solver.get("lr_scheduler", "constant"),
-        lr_warmup_steps=int(solver.get("lr_warmup_steps", 1)),
-        max_train_steps=int(solver.get("max_train_steps", 40000)),
-        reduce_optimizer_memory=bool(solver.get("use_8bit_adam", False)),
-        prediction_type="v_prediction" if cfg.get("enable_zero_snr", True) else "epsilon",
-        snr_gamma=float(cfg.get("snr_gamma", 5.0)), uncond_ratio=float(cfg.get("uncond_ratio", 0.1)),
-        noise_offset=float(cfg.get("noise_offset", 0.05)),
-        lip_loss_weight=float(data.get("lip_loss_weight", 1.0)),
-        kps_drop_rate=float(data.get("kps_drop_rate", 0.0)),
-        reference_drop_rate=float(data.get("reference_drop_rate", 0.0)))
 
 
 def expected_bwd_launches(cfg, unet_cfg, h: int, w: int, frames: int, batch: int = 1) -> dict:
@@ -1283,6 +1271,148 @@ def train_parity_phase(torch) -> dict:
                 step_losses=step_losses, launches=card_launches)
 
 
+LORA_PARITY = dict(rank=2, alpha=4.0)  # every default target of the denoising UNet
+
+
+def lora_bwd_launches(cfg, unet_cfg, h: int, w: int, frames: int, batch: int = 1) -> dict:
+    """K1 backward launches of one LoRA train step over the denoising UNet's
+    default targets: every attn1, attn1_5 and attn2 projection carries a
+    factor gradient, so every transformer block's q, k and v need one, as
+    when the whole denoising UNet trains (`expected_bwd_launches` with its
+    flag on); the reference net runs without a gradient."""
+    import dataclasses
+
+    return expected_bwd_launches(dataclasses.replace(cfg, train_denoising_unet=True,
+                                                     train_reference_net=False),
+                                 unet_cfg, h, w, frames, batch)
+
+
+def lora_parity_phase(torch) -> dict:
+    """Stage-2 LoRA (rank 2, alpha 4, every default target of the denoising
+    UNet) on the reduced fp32 models, card against CPU with shared weights,
+    factors, batch and draws: loss and factor gradients of one loss, then two
+    build_lora_train_step steps (train_parity's bars); then the inference
+    CLI's adapter merge (--lora_path) of the card's adapter exported after
+    step 2 on both pipelines, and cli_parity_run's call and bars on them."""
+    from vexpress_torch.cli import infer
+    from vexpress_torch.io.torch_export import save_torch_checkpoint
+    from vexpress_torch.ops import launches
+    from vexpress_torch.train import TrainConfig, TrainState, sample_draws
+    from vexpress_torch.train import lora as tl
+
+    card, cpu = card_and_cpu_pipelines(torch, seed=31)
+    size, frames = TRAIN_PARITY_SIZE, TRAIN_PARITY_FRAMES
+    lat = size // 8
+    batches = {"card": synthetic_train_batch(torch, size, frames, 16, seed=4, device=card.device)}
+    batches["cpu"] = {k: v.cpu() for k, v in batches["card"].items()}
+    pipes = {"card": card, "cpu": cpu}
+    cfg = TrainConfig.stage("stage_2", num_frames=frames, learning_rate=1e-5, adam_epsilon=1e-3,
+                            lip_loss_weight=2.0)
+    lcfg = tl.LoraConfig(**LORA_PARITY)
+    draws = sample_draws(torch.Generator().manual_seed(5), cfg, 1, frames, (lat, lat))
+    losses, grads, step_losses, factors, card_launches = {}, {}, {}, {}, {}
+    workdir = tempfile.TemporaryDirectory(prefix="lora_parity_")
+    adapter = str(pathlib.Path(workdir.name) / "lora-2.pth")
+    for name, pipe in pipes.items():
+        comps = pipe.components()
+        lora = tl.init_lora(comps, lcfg, seed=0)
+        g = torch.Generator().manual_seed(3)  # B off zero, so both factors get a gradient
+        for f in (f for sub in lora.values() for f in sub.values()):
+            f.lora_B.weight.data.copy_(0.05 * torch.randn(f.lora_B.weight.shape, generator=g))
+        optimizer = tl.make_lora_optimizer(lora, cfg)
+        step_fn, loss_fn = tl.build_lora_train_step(pipe, cfg, optimizer, lcfg, lora)
+        launches.reset()
+        loss = loss_fn(comps, batches[name], {k: v.to(pipe.device) for k, v in draws.items()})
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = [p.grad.detach().cpu() for p in tl.lora_parameters(lora)]
+        optimizer.zero_grad()
+        state, gen = TrainState(comps, optimizer), torch.Generator().manual_seed(7)
+        step_losses[name] = []
+        for _ in range(2):
+            state, metrics = step_fn(state, batches[name], gen)
+            step_losses[name].append(float(metrics["loss"]))
+        if name == "card":
+            torch.cuda.synchronize()
+            card_launches = {k: n for k, n in launches.counts.items() if n}
+            save_torch_checkpoint(tl.lora_to_torch_state_dict(lora, lcfg), adapter)
+        factors[name] = [p.detach().cpu() for p in tl.lora_parameters(lora)]
+        tl.detach_lora(comps, lora)
+        for mod in comps.values():
+            mod.eval()
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(grads["card"], grads["cpu"]))
+    factor_err = max(float((a - b).abs().max()) for a, b in zip(factors["card"], factors["cpu"]))
+    reckoned = lora_bwd_launches(cfg, card.m.unet_config, lat, lat, frames)
+    log(f"[lora_parity] fp32 stage 2, LoRA {LORA_PARITY} over {len(grads['card']) // 2} "
+        f"projections, {size}x{size}, {frames} frames: loss card {losses['card']:.6f} cpu "
+        f"{losses['cpu']:.6f} (rel {loss_rel:.2e}); worst factor gradient max|d|/max|g| "
+        f"{grad_rel:.2e}; factors after 2 steps max|d| {factor_err:.2e}; step losses card "
+        f"{step_losses['card']} cpu {step_losses['cpu']}; K1 launches on the card "
+        f"{card_launches}, backward reckoned a step {sorted(reckoned.items())}")
+    if card_launches.get("flash_sdpa_reference") or card_launches.get("flash_sdpa_bwd_reference"):
+        raise PhaseError(f"a plain flash version ran on the card: {card_launches}")
+    for kernel in ("flash_bwd_dkv", "flash_bwd_dq"):
+        want = 3 * sum(n for key, n in reckoned.items() if key[0] == kernel)  # 1 + 2 backwards
+        if card_launches.get(kernel, 0) != want or not want:
+            raise PhaseError(f"{kernel} ran {card_launches.get(kernel, 0)} times on the card, "
+                             f"reckoned {want}: {card_launches}")
+    if loss_rel > 1e-5 or grad_rel > 1e-4 or factor_err > 1e-5:
+        raise PhaseError(f"card and CPU LoRA training disagree: loss rel {loss_rel:.2e} "
+                         f"(<=1e-5), factor gradient {grad_rel:.2e} (<=1e-4), factors "
+                         f"{factor_err:.2e} (<=1e-5)")
+    for pipe in pipes.values():  # what build_pipeline does with --lora_path
+        infer.merge_lora_adapter(pipe, adapter)
+    workdir.cleanup()
+    cli = cli_parity_run(torch, card, cpu, parity_call_kwargs())
+    return dict(loss_card=losses["card"], loss_cpu=losses["cpu"], loss_rel=loss_rel,
+                worst_factor_grad_rel=grad_rel, factor_max_abs_err=factor_err,
+                step_losses=step_losses, launches=card_launches, cli=cli)
+
+
+class StepSplit:
+    """CUDA-event split of each training step into conditioning, UNet
+    forward, backward and optimizer: `begin()` marks a step's start, hooks
+    on the denoising UNet and a wrapper around the optimizer's step mark the
+    rest; `remove()` takes them off again."""
+
+    def __init__(self, torch, unet, optimizer):
+        self.torch, self.steps, self.optimizer = torch, [], optimizer
+        self.hooks = [unet.register_forward_pre_hook(lambda *_: self.mark("unet_start")),
+                      unet.register_forward_hook(lambda *_: self.mark("unet_end"))]
+        self.inner_step = optimizer.step
+
+        def timed_step():
+            self.mark("opt_start")
+            updated = self.inner_step()
+            self.mark("opt_end")
+            return updated
+
+        optimizer.step = timed_step
+
+    def begin(self):
+        self.steps.append({})
+        self.mark("start")
+
+    def mark(self, name):
+        self.steps[-1][name] = self.torch.cuda.Event(enable_timing=True)
+        self.steps[-1][name].record()
+
+    def splits(self) -> list:
+        """Seconds of each part of each step (call after a synchronize)."""
+        return [dict(conditioning=e["start"].elapsed_time(e["unet_start"]) / 1e3,
+                     unet_forward=e["unet_start"].elapsed_time(e["unet_end"]) / 1e3,
+                     backward=e["unet_end"].elapsed_time(e["opt_start"]) / 1e3,
+                     optimizer=e["opt_start"].elapsed_time(e["opt_end"]) / 1e3)
+                for e in self.steps]
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+        self.optimizer.step = self.inner_step
+
+
 def train_full_phase(torch) -> dict:
     """Stage 2 at full SD1.5 width: configs/stage_2.yaml's values, bf16 (the
     resolve_dtype(cfg, "bf16") route), seeded random weights, stage_zero_init,
@@ -1295,8 +1425,10 @@ def train_full_phase(torch) -> dict:
     from vexpress_torch.ops import launches
     from vexpress_torch.pipelines import VExpressPipeline
     from vexpress_torch.train import TrainState, build_train_step, make_optimizer, stage_zero_init
-    from vexpress_torch.train.config import resolve_dtype
+    from vexpress_torch.cli.train import train_config
+    from vexpress_torch.train.config import resolve_dtype, validate_config
 
+    validate_config(STAGE_2)
     cfg = train_config(STAGE_2)
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[resolve_dtype(STAGE_2, "bf16")]
     models = default_pipeline_models(dtype)
@@ -1319,46 +1451,23 @@ def train_full_phase(torch) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    events = {}
-
-    def mark(name):
-        events[name] = torch.cuda.Event(enable_timing=True)
-        events[name].record()
-
-    unet = comps["denoising_unet"]
-    hooks = [unet.register_forward_pre_hook(lambda *_: mark("unet_start")),
-             unet.register_forward_hook(lambda *_: mark("unet_end"))]
-    inner_step = optimizer.step
-
-    def timed_step():
-        mark("opt_start")
-        updated = inner_step()
-        mark("opt_end")
-        return updated
-
-    optimizer.step = timed_step
+    split = StepSplit(torch, comps["denoising_unet"], optimizer)
     state, gen = TrainState(comps, optimizer), torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     launches.reset()
-    step_s, losses, splits = [], [], []
+    step_s, losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mark("start")
+        split.begin()
         state, metrics = step_fn(state, batch, gen)
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        e = events
-        splits.append(dict(conditioning=e["start"].elapsed_time(e["unet_start"]) / 1e3,
-                           unet_forward=e["unet_start"].elapsed_time(e["unet_end"]) / 1e3,
-                           backward=e["unet_end"].elapsed_time(e["opt_start"]) / 1e3,
-                           optimizer=e["opt_start"].elapsed_time(e["opt_end"]) / 1e3))
     counts = dict(launches.counts)
     by_shape = {k: n for k, n in launches.shapes.items()}
-    for h in hooks:
-        h.remove()
-    optimizer.step = inner_step
+    split.remove()
+    splits = split.splits()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     changed_frozen = [f"{m}.{n}" for m, mod in comps.items() for n, p in mod.named_parameters()
@@ -1401,6 +1510,170 @@ def train_full_phase(torch) -> dict:
                 fwd_launches_by_shape=[[*k, n] for k, n in sorted(fwd_by_shape.items())],
                 bwd_launches_by_shape=[[*k, n] for k, n in sorted(measured.items())],
                 bwd_launches_expected=[[*k, n] for k, n in sorted(expected.items())])
+
+
+TRAIN_CLI_STEPS = 4
+TRAIN_CLI_LORA = {"rank": 8, "alpha": 8}  # modules: denoising_unet; the default targets
+
+
+def _bf16_ulps(a, b):
+    """Largest |a - b| per element in bf16 ulps of the larger magnitude."""
+    import torch
+
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def train_cli_phase(torch) -> dict:
+    """The training CLI's train() at full SD1.5 width: STAGE_2 plus a lora
+    section (rank 8, alpha 8, the denoising UNet's default targets), bf16,
+    seeded random base weights (the loader's, as train_full's), 20 frames at
+    512x512, batch 1 from synthetic_train_batch, TRAIN_CLI_STEPS steps with a
+    checkpoint every 2 into a temporary directory. Checks the losses, the
+    files, the restore of the last checkpoint against the live state
+    (bitwise, on the card), and the adapter's merge on the card against the
+    CPU merge of the same tensors (<= 1 bf16 ulp a weight)."""
+    from vexpress_torch.cli import train as train_cli
+    from vexpress_torch.io.checkpoints import restore_train_state
+    from vexpress_torch.ops import launches
+    from vexpress_torch.train import lora as tl
+    from vexpress_torch.train.lora import base_named_parameters, load_and_merge_lora
+
+    size, frames = STAGE_2["data"]["train_width"], STAGE_2["data"]["num_frames"]
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = dict(json.loads(json.dumps(STAGE_2)), lora=dict(TRAIN_CLI_LORA),
+                   checkpointing_steps=2, output_dir=out_dir, seed=0)
+        cfg_path = pathlib.Path(out_dir) / "stage_2_lora.json"
+        cfg_path.write_text(json.dumps(cfg))
+        args = train_cli.parse_args(["--config", str(cfg_path), "--dtype", "bf16",
+                                     "--max_steps_override", str(TRAIN_CLI_STEPS)])
+
+        def batches():
+            for i in range(TRAIN_CLI_STEPS):
+                batch = synthetic_train_batch(torch, size, frames, 768, seed=3 + i, device="cpu")
+                yield {k: v.numpy() for k, v in batch.items()}
+
+        # StepSplit splits each step as train_full's are, set by wrapping
+        # the step that train() builds
+        split, real_build = [], tl.build_lora_train_step
+
+        def timed_build(pipeline, tcfg, optimizer, *a, **kw):
+            step_fn, loss_fn = real_build(pipeline, tcfg, optimizer, *a, **kw)
+            split.append(StepSplit(torch, pipeline.denoising_unet, optimizer))
+
+            def timed_step(*step_args):
+                split[0].begin()
+                return step_fn(*step_args)
+
+            return timed_step, loss_fn
+
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        tl.build_lora_train_step = timed_build
+        try:
+            t0 = time.perf_counter()
+            run = train_cli.train(cfg, args, batches())
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            tl.build_lora_train_step = real_build
+            for sp in split:
+                sp.remove()
+        splits = split[0].splits()
+        counts = {k: n for k, n in launches.counts.items() if n}
+        by_shape = dict(launches.shapes)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        out = pathlib.Path(out_dir)
+        files = {name: (out / name).exists() for name in (
+            "checkpoints/checkpoint-2", "checkpoints/checkpoint-4", "lora-2.pth", "lora-4.pth",
+            "metrics.jsonl")}
+
+        state, lora, pipe = run["state"], run["lora"], run["pipeline"]
+        comps = pipe.components()
+        factors = tl.lora_parameters(lora)
+        n_pairs, n_factor = sum(len(sub) for sub in lora.values()), sum(p.numel() for p in factors)
+        # restore checkpoint-4 into the live structures after wiping them
+        live = dict(factors=[p.detach().clone() for p in factors],
+                    moments=[{k: v.clone() for k, v in state.optimizer.inner.state[p].items()}
+                             for p in factors],
+                    count=state.optimizer.inner.count, step=state.step)
+        with torch.no_grad():
+            for p in factors:
+                p.zero_()
+                state.optimizer.inner.state[p] = {}
+        state.optimizer.inner.count, state.step = 0, 0
+        restore_train_state(str(out / "checkpoints" / "checkpoint-4"), state)
+        restored = (state.step == live["step"] and state.optimizer.inner.count == live["count"]
+                    and all(torch.equal(a, b) for a, b in zip(factors, live["factors"]))
+                    and all(m.keys() == state.optimizer.inner.state[p].keys()
+                            and all(torch.equal(v, state.optimizer.inner.state[p][k])
+                                    for k, v in m.items())
+                            for p, m in zip(factors, live["moments"])))
+        # the adapter of step 4 merged into the same base weights on the card
+        # and on the CPU, and against the live parametrized weights
+        base = {m: dict(base_named_parameters(mod)) for m, mod in comps.items()}
+        merged = load_and_merge_lora(base, str(out / "lora-4.pth"), comps)["denoising_unet"]
+        keys = [name + ".weight" for name in lora["denoising_unet"]]
+        host = load_and_merge_lora({"denoising_unet": {k: base["denoising_unet"][k].cpu()
+                                                       for k in keys}},
+                                   str(out / "lora-4.pth"), comps)["denoising_unet"]
+        ulps = max(_bf16_ulps(merged[k].cpu(), host[k]) for k in keys)
+        unet = comps["denoising_unet"]
+        live_equal = all(torch.equal(merged[k], getattr(unet.get_submodule(k[:-7]), "weight"))
+                         for k in keys)
+        moved = sum(not torch.equal(merged[k], base["denoising_unet"][k]) for k in keys)
+    losses, step_s = run["losses"], run["step_s"]
+    later = step_s[1:]
+    fwd_by_shape = {k[1:]: n for k, n in by_shape.items() if k[0] == "flash_fwd"}
+    measured = {k: n for k, n in by_shape.items() if k[0].startswith("flash_bwd")}
+    lat = size // 8
+    tcfg = train_cli.train_config(cfg)
+    expected = {k: n * TRAIN_CLI_STEPS for k, n in
+                lora_bwd_launches(tcfg, pipe.m.unet_config, lat, lat, frames).items()}
+    per_step = {f"{k[0]} B={k[1]} Lq={k[2]} Lk={k[3]} D={k[4]}": n / TRAIN_CLI_STEPS
+                for k, n in sorted({**measured, **{("flash_fwd",) + k: n for k, n in
+                                                   fwd_by_shape.items()}}.items())}
+    per_step["flash_bwd_dkv_sum"] = counts.get("flash_bwd_dkv_sum", 0) / TRAIN_CLI_STEPS
+    split_mean = {k: sum(s[k] for s in splits[1:]) / len(later) for k in splits[0]}
+    log(f"[train_cli] cli.train.train, stage 2 + lora {TRAIN_CLI_LORA} ({n_pairs} adapted "
+        f"projections, {n_factor / 1e6:.3f} M factor params), {pipe.m.dtype}, {size}x{size}, "
+        f"{frames} frames, batch 1, {TRAIN_CLI_STEPS} steps: wall {wall_s:.1f} s, step 1 "
+        f"{step_s[0]:.3f} s, steps 2-{TRAIN_CLI_STEPS} {sum(later) / len(later):.3f} s/step "
+        f"({', '.join(f'{x:.3f}' for x in later)}), split of steps 2-{TRAIN_CLI_STEPS} "
+        f"{json.dumps(split_mean)}, step 1 split {json.dumps(splits[0])}, peak "
+        f"{peak_gib:.2f} GiB, losses {losses}; "
+        f"files {files}; restore of checkpoint-4 equals the live state {restored}; adapter merge "
+        f"card vs CPU max {ulps:.2f} bf16 ulps, equal to the live weights {live_equal}, "
+        f"{moved} of {len(keys)} weights moved; launches {counts}; K1 launches a step by "
+        f"kernel and shape {json.dumps(per_step)}; backward measured {sorted(measured.items())}, "
+        f"reckoned {sorted(expected.items())}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != TRAIN_CLI_STEPS:
+        raise PhaseError(f"losses {losses}")
+    if not all(files.values()):
+        raise PhaseError(f"the run did not write {[k for k, v in files.items() if not v]}")
+    if not restored:
+        raise PhaseError("checkpoint-4 does not restore to the live state")
+    if ulps > 1.0 or not live_equal or not moved:
+        raise PhaseError(f"adapter merge: card vs CPU {ulps:.2f} bf16 ulps (<= 1), equal to the "
+                         f"live weights {live_equal}, {moved} weights moved")
+    if counts.get("flash_sdpa_reference") or counts.get("flash_sdpa_bwd_reference"):
+        raise PhaseError(f"a plain flash version ran on the card: {counts}")
+    if measured != expected:
+        raise PhaseError(f"K1 backward launches {measured} differ from the reckoned {expected}")
+    checked = {_shape_key(row) for row in K1_SHAPES + TRAIN_K1_SHAPES}
+    bwd_shapes = {k[1:] for k in measured}
+    if not set(fwd_by_shape) <= checked or not bwd_shapes <= checked:
+        raise PhaseError(f"K1 ran at shapes {sorted(set(fwd_by_shape) | bwd_shapes)}; the kernel "
+                         f"phase checks {sorted(checked)}")
+    return dict(step_s=step_s, step1_s=step_s[0], steps_2_on_s=sum(later) / len(later),
+                split_s=split_mean, step1_split_s=splits[0],
+                wall_s=wall_s, peak_alloc_gib=peak_gib, losses=losses, adapted=n_pairs,
+                factor_params=n_factor, merge_max_bf16_ulps=ulps, launches=counts,
+                launches_per_step=per_step,
+                fwd_launches_by_shape=[[*k, n] for k, n in sorted(fwd_by_shape.items())],
+                bwd_launches_by_shape=[[*k, n] for k, n in sorted(measured.items())])
 
 
 CLI_STEPS = 12
@@ -1502,22 +1775,28 @@ def cli_full_phase(torch) -> dict:
 
 def kernels_line(results: dict) -> list:
     """The `kernels` JSON entries: each kernel's launches on the main paths
-    (inference `full`, training `train_full`) and its times summed over the
+    (inference `full`, training `train_full` and `train_cli`) and its times summed over the
     main-path shapes at which those runs launched it, one call each."""
     inf_by_shape = {tuple(key): n for *key, n in results["full"]["flash_launches_by_shape"]}
-    train_fwd = {tuple(key): n for *key, n in results["train_full"]["fwd_launches_by_shape"]}
-    train_bwd = {tuple(key): n for *key, n in results["train_full"]["bwd_launches_by_shape"]}
+    train_paths = ("train_full", "train_cli")
+    train_fwd = {p: {tuple(key): n for *key, n in results[p]["fwd_launches_by_shape"]}
+                 for p in train_paths}
+    train_bwd = {p: {tuple(key): n for *key, n in results[p]["bwd_launches_by_shape"]}
+                 for p in train_paths}
     fwd_rows = results["kernel"]["rows"]
     grad_rows = results["kernel"]["grad_rows"]
     for r in fwd_rows:
         r["launches"] = inf_by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
     for r in grad_rows:
-        if r["stage"] != 2:  # train_full runs stage 2 only
+        if r["stage"] != 2:  # train_full and train_cli run stage 2 only
             continue
         key = (r["B"], r["Lq"], r["Lk"], r["D"])
-        r["launches"] = dict(flash_fwd=train_fwd.get(key, 0),
-                             flash_bwd_dkv=train_bwd.get(("flash_bwd_dkv",) + key, 0),
-                             flash_bwd_dq=train_bwd.get(("flash_bwd_dq",) + key, 0))
+        r["launches_by_path"] = {p: dict(flash_fwd=train_fwd[p].get(key, 0),
+                                         flash_bwd_dkv=train_bwd[p].get(("flash_bwd_dkv",) + key, 0),
+                                         flash_bwd_dq=train_bwd[p].get(("flash_bwd_dq",) + key, 0))
+                                 for p in train_paths}
+        r["launches"] = {k: sum(by[k] for by in r["launches_by_path"].values())
+                         for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
 
     def entry(name, source, replaces, parts, launches,
               times_are="sums over the main-path shapes at which it ran, one call each",
@@ -1538,11 +1817,14 @@ def kernels_line(results: dict) -> list:
                     for r in main_grad if r["launches"]["flash_fwd"]])
     inf_n, train_n = results["full"]["flash_launches"], results["train_full"]["launches"].get(
         "flash_fwd", 0)
+    cli_train_n = results["train_cli"]["launches"].get("flash_fwd", 0)
     sources = ["vexpress_torch/csrc/flash_fwd_wgmma.cuh (bf16)",
                "vexpress_torch/csrc/flash_fwd.cu (launch, fp32)"]
     kernels = [entry("flash_fwd", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
-                     "vexpress_tpu/ops/flash.py:42", fwd_parts, inf_n + train_n, sources=sources,
-                     launches_by_path=dict(full=inf_n, train_full=train_n),
+                     "vexpress_tpu/ops/flash.py:42", fwd_parts, inf_n + train_n + cli_train_n,
+                     sources=sources,
+                     launches_by_path=dict(full=inf_n, train_full=train_n,
+                                           train_cli=cli_train_n),
                      shapes=fwd_rows + [dict(r, kernel="flash_fwd") for r in main_grad])]
     for name, key, grads, lib_line in (
             ("flash_bwd_dkv", "dkv", ("dk", "dv"), ":941 _flash_attention_bwd_dkv"),
@@ -1550,15 +1832,16 @@ def kernels_line(results: dict) -> list:
         parts = [(r[f"{key}_ms"], r["plain_bwd_ms"], r["sdpa_bwd_ms"], r["bounds"][key]["ms"],
                   r["bounds"][key]["by"], max(r["errors"][g]["max_abs_err"] for g in grads))
                  for r in main_grad if r["launches"][name]]
-        extra = {}
+        by_path = {p: results[p]["launches"].get(name, 0) for p in train_paths}
+        extra = dict(launches_by_path=by_path)
         if name == "flash_bwd_dkv":
-            extra["split_sum_launches"] = results["train_full"]["launches"].get(
-                "flash_bwd_dkv_sum", 0)
+            extra["split_sum_launches"] = sum(results[p]["launches"].get("flash_bwd_dkv_sum", 0)
+                                              for p in train_paths)
         kernels.append(entry(
             name, "vexpress_torch/csrc/flash_bwd_wgmma.cuh",
             "vexpress_tpu/ops/flash.py:93, which reaches the library's "
             "jax/experimental/pallas/ops/tpu/flash_attention.py" + lib_line, parts,
-            results["train_full"]["launches"].get(name, 0),
+            sum(by_path.values()),
             sources=["vexpress_torch/csrc/flash_bwd_wgmma.cuh (bf16, D=40 and 80)",
                      "vexpress_torch/csrc/flash_bwd.cu (launch, split sum, D=160, fp32)"],
             plain_is="flash_sdpa_bwd_reference (dq, dk and dv at once)",
@@ -1633,8 +1916,10 @@ def main() -> int:
     for name, run in (("kernel", lambda: kernel_phase(torch)),
                       ("parity", lambda: parity_phase(torch)),
                       ("train_parity", lambda: train_parity_phase(torch)),
+                      ("lora_parity", lambda: lora_parity_phase(torch)),
                       ("full", lambda: full_phase(torch, FULL_STEPS)),
                       ("train_full", lambda: train_full_phase(torch)),
+                      ("train_cli", lambda: train_cli_phase(torch)),
                       ("cli_full", lambda: cli_full_phase(torch)),
                       ("attn_variants", lambda: attn_variants_phase(torch)),
                       ("trace", lambda: trace_phase(torch))):

@@ -287,8 +287,7 @@ def test_cli_generates_video(tmp_path):
     assert shape == (7, 64, 64)
 
 
-@pytest.mark.parametrize("flag,value", [("--lora_path", "x.safetensors"),
-                                        ("--do_multi_devices_inference", None),
+@pytest.mark.parametrize("flag,value", [("--do_multi_devices_inference", None),
                                         ("--mode", "sharded"), ("--mode", "fused")])
 def test_cli_unported_options_raise(flag, value):
     from vexpress_torch.cli import infer

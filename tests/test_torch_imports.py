@@ -46,7 +46,9 @@ want = {"vexpress_torch.train", "vexpress_torch.train.config", "vexpress_torch.t
         "vexpress_torch.pipelines.kps", "vexpress_torch.utils.media_native",
         "vexpress_torch.ops.flash_variants", "vexpress_torch.ops.splash",
         "vexpress_torch.utils.observability", "vexpress_torch.tools.bench_attn_variants",
-        "vexpress_torch.tools.bench_motion_variants", "vexpress_torch.tools.ptxas_report"}
+        "vexpress_torch.tools.bench_motion_variants", "vexpress_torch.tools.ptxas_report",
+        "vexpress_torch.train.lora", "vexpress_torch.train.dataset", "vexpress_torch.io.checkpoints",
+        "vexpress_torch.cli.train", "vexpress_torch.cli.prepare_dataset"}
 assert want <= set(names), sorted(want - set(names))
 print("OK", len(names))
 """

@@ -13,9 +13,9 @@ seeded random weights. VEXPRESS_FLASH_LITE=1 in the environment sends the
 flash-eligible attention to K2 (ops/flash_lite.py) instead of K1.
 
 The work is split so that it can be driven without the files: build_pipeline
-(models, overrides, inference config, checkpoints, stage_1), prepare_inputs
-(image, audio, keypoints: cv2 and the media runtime) and generate (the
-pipeline call with the CLI's keywords).
+(models, overrides, inference config, checkpoints, a LoRA adapter, stage_1),
+prepare_inputs (image, audio, keypoints: cv2 and the media runtime) and
+generate (the pipeline call with the CLI's keywords).
 """
 
 from __future__ import annotations
@@ -65,7 +65,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "--num_inference_steps 12); an inference yaml's `sampler:` key sets "
                         "the default")
     p.add_argument("--lora_path", type=str, default="",
-                   help="LoRA adapter checkpoint (not ported yet: ROADMAP Queue 1 item 10)")
+                   help="LoRA adapter checkpoint (peft layout, as the training CLI exports it), "
+                        "merged into the weights after loading")
     p.add_argument("--lora_scale", type=float, default=None,
                    help="override the adapter's alpha/rank merge scale")
     p.add_argument("--guidance_scale", type=float, default=3.5)
@@ -107,9 +108,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def _check_ported(args) -> None:
     """Options whose code is not ported yet raise, naming their ROADMAP item."""
-    if args.lora_path:
-        raise NotImplementedError("--lora_path: LoRA merge is not ported yet "
-                                  "(ROADMAP Queue 1 item 10, with train/lora.py)")
     if args.do_multi_devices_inference or args.mode == "sharded":
         raise NotImplementedError("--do_multi_devices_inference / --mode sharded: "
                                   "window-parallel inference is not ported yet "
@@ -125,7 +123,8 @@ def _check_ported(args) -> None:
 def build_pipeline(args):
     """The pipeline the flags describe: models (dtype, UNet config, size
     overrides), the inference yaml (its scheduler, and its sampler unless
-    --sampler is given), the checkpoints, and stage_1's zeroing."""
+    --sampler is given), the checkpoints, the LoRA adapter, and stage_1's
+    zeroing."""
     from ..io import apply_model_overrides, default_pipeline_models, load_pipeline
     from ..models.unet_3d import UNetConfig
     from ..utils.misc import zero_params_matching
@@ -159,12 +158,34 @@ def build_pipeline(args):
         v_kps_guider_path=args.v_kps_guider_path,
         audio_projection_path=args.audio_projection_path, param_dtype=dtype,
         device="cpu" if args.device == "cpu" else torch.device("cuda", args.gpu_id))
+    if args.lora_path:
+        merge_lora_adapter(pipeline, args.lora_path, args.lora_scale)
+        print(f"[vexpress] merged LoRA adapter {args.lora_path}"
+              + (f" (scale {args.lora_scale})" if args.lora_scale is not None else ""))
     if args.test_stage == "stage_1":
         # a stage-1 checkpoint: silence the audio cross-attention and the
         # motion modules (reference inference.py:203-214)
         zero_params_matching(pipeline.denoising_unet, "temporal_transformer.proj_out",
                              "attn2.to_out.0")
     return pipeline
+
+
+@torch.no_grad()
+def merge_lora_adapter(pipeline, path: str, scale=None) -> None:
+    """Merge a peft-layout adapter into the pipeline's weights in place, on
+    their device (`load_and_merge_lora`). The save_memory host copies of the
+    modules it touches are merged again on the host, so a later release
+    never copies them back from the card; untouched modules keep theirs."""
+    from ..train.lora import load_and_merge_lora
+
+    comps = pipeline.components()
+    params = {name: dict(m.named_parameters()) for name, m in comps.items()}
+    merged, pipeline._host_cond = load_and_merge_lora(params, path, comps, scale,
+                                                      host_params=pipeline._host_cond)
+    for mod, tensors in merged.items():
+        for key, value in tensors.items():
+            if value is not params[mod][key]:
+                params[mod][key].copy_(value)
 
 
 def load_kps_sequence(path: str) -> np.ndarray:

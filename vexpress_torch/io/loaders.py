@@ -85,6 +85,7 @@ def _find_weights_file(directory: str) -> Optional[str]:
 
 def load_pipeline(
     models: Optional[PipelineModels] = None,
+    base_model_path: Optional[str] = None,
     vae_path: Optional[str] = None,
     audio_encoder_path: Optional[str] = None,
     reference_net_path: Optional[str] = None,
@@ -105,8 +106,9 @@ def load_pipeline(
     no place raise (the reference's strict=False load, inference.py:79,
     would drop a misspelled key silently), but the audio encoder's CTC head
     (`lm_head.*`), which is dropped. Keeps host copies of the modules
-    save_memory releases. The JAX loader's `base_model_path` (the SD prior
-    of training) is not ported yet."""
+    save_memory releases. `base_model_path` (training's SD prior: a
+    diffusers SD directory or UNet file) loads into both UNets before the
+    stage checkpoints overlay them (train.py:290-299)."""
     models = models or default_pipeline_models()
     if param_dtype is not None:
         models = dataclasses.replace(models, dtype=param_dtype)
@@ -116,12 +118,8 @@ def load_pipeline(
     def log(msg):
         print(f"[vexpress] {msg}")
 
-    def load_into(name, sd, ignorable=is_ignorable_unconsumed):
-        n, unconsumed = load_native_state_dict(comps[name], sd)
-        unconsumed = [k for k in unconsumed if not ignorable(k)]
-        if unconsumed:
-            raise ValueError(f"{len(unconsumed)} checkpoint tensors had no destination in "
-                             f"{name} (first: {unconsumed[:8]})")
+    def load_into(name, sd):
+        n = _load_strict(comps[name], name, sd, is_ignorable_unconsumed)
         log(f"loaded {n} tensors into {name}")
 
     def resolve(path):
@@ -134,13 +132,19 @@ def load_pipeline(
         log(f"checkpoint path {path} not found — using random init")
         return None
 
+    if base_model_path:
+        f = resolve(os.path.join(base_model_path, "unet")) or resolve(base_model_path)
+        if f:
+            sd = load_torch_checkpoint(f)
+            load_into("reference_net", sd)
+            load_into("denoising_unet", sd)
+            log(f"base model prior init from {f}")
     f = resolve(vae_path)
     if f:
         load_into("vae", load_torch_checkpoint(f))
     f = resolve(audio_encoder_path)
     if f:
-        sd = {k.removeprefix("wav2vec2."): v for k, v in load_torch_checkpoint(f).items()}
-        load_into("wav2vec2", convert_wav2vec2_state_dict(sd), is_ignorable_audio_unconsumed)
+        log(f"loaded {load_wav2vec2_weights(comps['wav2vec2'], f)} tensors into wav2vec2")
     f = resolve(reference_net_path)
     if f:
         load_into("reference_net", load_torch_checkpoint(f))
@@ -159,6 +163,27 @@ def load_pipeline(
         load_into("audio_projection", load_torch_checkpoint(f))
     pipe.keep_host_copies()
     return pipe
+
+
+def _load_strict(module: nn.Module, name: str, sd, ignorable) -> int:
+    """Load `sd` by native keys; tensors that find no place (bar the
+    `ignorable` ones) raise. Returns the number of tensors loaded."""
+    n, unconsumed = load_native_state_dict(module, sd)
+    unconsumed = [k for k in unconsumed if not ignorable(k)]
+    if unconsumed:
+        raise ValueError(f"{len(unconsumed)} checkpoint tensors had no destination in "
+                         f"{name} (first: {unconsumed[:8]})")
+    return n
+
+
+def load_wav2vec2_weights(model: Wav2Vec2Model, path: str) -> int:
+    """Load an HF wav2vec2 checkpoint (`Wav2Vec2Model`, or `Wav2Vec2ForCTC`
+    with its `wav2vec2.` prefix) into `model`; the CTC head (`lm_head.*`) is
+    dropped, any other tensor that finds no place raises. Returns the number
+    of tensors loaded."""
+    sd = {k.removeprefix("wav2vec2."): v for k, v in load_torch_checkpoint(path).items()}
+    return _load_strict(model, "wav2vec2", convert_wav2vec2_state_dict(sd),
+                        is_ignorable_audio_unconsumed)
 
 
 @torch.no_grad()

@@ -3,14 +3,15 @@
 The port's own copy of the mapping in vexpress_tpu/io/torch_export.py (module
 list indices re-expanded, HWIO -> OIHW, conv1d (K, I/g, O) -> (O, I/g, K),
 Dense transposed, norm `scale` -> `weight`), plus the rename of the wav2vec2
-tree to the transformers checkpoint keys that the port's Wav2Vec2Model uses.
-Numpy only.
+tree to the transformers checkpoint keys that the port's Wav2Vec2Model uses,
+and the per-module `.pth` writers of training (train.py:734-753 of the
+reference: `save_torch_checkpoint`, `filter_motion_module`).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 
@@ -92,3 +93,16 @@ def wav2vec2_torch_key(key: str) -> str:
         if new != key:
             return new
     return key
+
+
+def filter_motion_module(state_dict: Dict[str, Any]) -> Dict[str, Any]:
+    """train.py:744-753: the motion-module-only checkpoint."""
+    return {k: v for k, v in state_dict.items() if "motion_module" in k}
+
+
+def save_torch_checkpoint(state_dict: Dict[str, Any], path: str) -> None:
+    """torch.save of a flat state dict; numpy arrays become tensors."""
+    import torch
+
+    torch.save({k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+                for k, v in state_dict.items()}, path)

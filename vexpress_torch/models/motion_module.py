@@ -54,6 +54,12 @@ class TemporalTransformer3D(nn.Module):
 
     def forward(self, x: torch.Tensor, frames: int) -> torch.Tensor:
         n, c, h, w = x.shape  # (B*F, C, H, W)
+        if (x.device.type == "cpu" and torch.is_grad_enabled() and self.norm.weight.requires_grad
+                and not x.requires_grad):
+            # PyTorch's CPU GroupNorm backward (2.13) crashes on a channels-last
+            # input that needs no gradient when the norm's parameters need one
+            # (the first motion module when only the motion modules train)
+            x = x.contiguous()
         hs = self.norm(x).permute(0, 2, 3, 1).reshape(n, h * w, c)
         hs = self.proj_in(hs)
         for blk in self.transformer_blocks:

@@ -2,8 +2,8 @@
 the device-side post-processing of the decoded video (the reference's
 save_video flicker filter, pipelines/utils.py:46-61, the uint8 conversion and
 the BT.601 YUV420 conversion the mp4 encode needs), and the host-side file
-IO (`save_video`, `save_video_yuv`, `load_image_rgb`). cv2 is imported only
-inside the functions that use it.
+IO (`save_video`, `save_video_yuv`, `load_image_rgb`, `read_video_rgb`). cv2
+is imported only inside the functions that use it.
 """
 
 from __future__ import annotations
@@ -131,3 +131,20 @@ def load_image_rgb(path: str, height: int, width: int) -> np.ndarray:
         raise FileNotFoundError(f"cannot read image {path}")
     img = cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR)
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+
+
+def read_video_rgb(path: str) -> np.ndarray:
+    """-> (F, H, W, 3) uint8 RGB frames, decoded with cv2."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    if not frames:
+        raise RuntimeError(f"no frames decoded from {path}")
+    return np.stack(frames)

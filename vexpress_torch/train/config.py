@@ -30,6 +30,9 @@ KNOWN_KEYS: Dict[str, tuple] = {
         "seed", "resume_from_checkpoint", "checkpointing_steps", "output_dir",
         # extensions of the JAX package, accepted by both
         "model_overrides", "unet_config_path",
+        # the training CLI's LoRA section (the JAX registry lacks it and warns
+        # that it is ignored, though its CLI reads it)
+        "lora",
     ),
     "data": (
         "train_bs", "train_width", "train_height", "meta_paths", "flip_rate",
