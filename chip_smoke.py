@@ -57,6 +57,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                 --save_gpu_memory, K2 on, median filter and YUV420 output, on
                 44 synthetic 512x512 frames; then a 1-step call without
                 save_memory brings the released modules back
+  dist_parity   the data-parallel path (vexpress_torch.parallel) on parity's
+                reduced fp32 models, 2 spawned ranks sharing the card over gloo:
+                the pipeline in mode="sharded" against the same call streamed
+                (1e-5), the ranks' latents bitwise equal; 2 stage-3 train
+                steps, batch 1 a rank, against the batch-2 step on the CPU
+                (loss 1e-5, gradients 1e-4 of their max), the ranks'
+                parameters bitwise equal; then one rank over NCCL, whose
+                sharded call and data-parallel steps (under deterministic
+                algorithms) equal the streamed call and the plain steps
+                bitwise
+  sharded       the inference CLI at cli_full's settings plus
+                --do_multi_devices_inference on 2 ranks sharing the card: one
+                window a rank; rank 0's video against cli_full's (PSNR > 45
+                dB), the latents bitwise equal across ranks, each rank's K2
+                launches as reckoned
+  train_dp      the training CLI's train() at STAGE_2 on 2 ranks sharing the
+                card, batch 1 a rank, 3 steps, ZeRO-2-sharded 8-bit Adam, the
+                checkpoint and exports at the last: losses finite, parameters
+                bitwise equal across ranks after every step, each rank's
+                optimizer state within 10% of half, each rank's K1 backward
+                launches as reckoned
   attn_variants T1 (K1's forward at other tilings) and T2 (full-mask splash MHA)
                 at the attention-variant bench's shape (48, 8, 4096, 40) bf16:
                 each row against its plain version and against exact fp32
@@ -1677,6 +1698,12 @@ def train_cli_phase(torch) -> dict:
 
 
 CLI_STEPS = 12
+# the CLI's flags of cli_full: DPM-Solver++ 12 steps, save_memory (K2 is set apart)
+CLI_FULL_ARGV = ["--reference_image_path", "synthetic", "--audio_path", "synthetic",
+                 "--sampler", "dpmpp_2m", "--num_inference_steps", str(CLI_STEPS),
+                 "--save_gpu_memory"]
+# outputs kept for a later phase's comparison: cli_full's YUV420 planes
+KEPT = {}
 
 
 def cli_full_phase(torch) -> dict:
@@ -1691,9 +1718,7 @@ def cli_full_phase(torch) -> dict:
     from vexpress_torch.ops import flash, launches
     from vexpress_torch.pipelines.context import compute_context_windows
 
-    args = infer.parse_args(["--reference_image_path", "synthetic", "--audio_path", "synthetic",
-                             "--sampler", "dpmpp_2m", "--num_inference_steps", str(CLI_STEPS),
-                             "--save_gpu_memory"])
+    args = infer.parse_args(CLI_FULL_ARGV)
     size, frames, ctx = args.image_width, FULL_FRAMES, args.context_frames
     ref, kps, wave = synthetic_inputs(size, size, frames, seed=1)
     inputs = dict(reference_image=ref, kps_images=kps, audio=wave, video_length=frames)
@@ -1721,6 +1746,7 @@ def cli_full_phase(torch) -> dict:
         t0 = time.perf_counter()
         planes = infer.generate(pipe, inputs, args, output_yuv420=True)
         run_s = time.perf_counter() - t0
+        KEPT["cli_full_planes"] = planes
         counts = {k: n for k, n in launches.counts.items() if n}
         by_shape = {k[1:]: n for k, n in launches.shapes.items() if k[0] == "flash_lite_fwd"}
         peaks = split.finish()
@@ -1773,22 +1799,577 @@ def cli_full_phase(torch) -> dict:
                 windows=n_windows, y_std=float(y.std()))
 
 
+# ------------------------------------------------------------ two-rank phases
+
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 900  # a two-rank phase's processes end within this, or the phase fails
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(rank, world, port, backend, env, out_dir, job, args):
+    """One rank of run_ranks: sets `env`, joins the group on the card, runs
+    job(torch, mesh, *args), saves what it returns."""
+    import os
+
+    os.environ.update(env)
+    import torch
+    import torch.distributed as dist
+    from vexpress_torch.parallel import mesh as pmesh
+
+    pmesh.initialize_distributed(f"127.0.0.1:{port}", world, rank, backend=backend)
+    try:
+        result = job(torch, pmesh.create_mesh(), *args)
+        torch.save(result, pathlib.Path(out_dir) / f"{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(torch, job, world: int, *args, backend="gloo", env=None,
+              timeout: float = DIST_TIMEOUT_S):
+    """job(torch, mesh, *args) in `world` spawned processes on the card, one
+    rank each, joined over localhost (gloo, so that several ranks share the
+    one card; backend=None: NCCL for CUDA tensors), with `env` added to
+    their environment. Returns their results by rank. A rank that raises, or
+    a job that outlives `timeout`, kills every rank and fails the phase."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as out_dir:
+        ctx = mp.start_processes(_rank_entry, args=(world, _free_port(), backend, env or {},
+                                                    out_dir, job, args),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+                if time.monotonic() >= deadline:
+                    raise PhaseError(f"{job.__name__} on {world} ranks outlived {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [torch.load(pathlib.Path(out_dir) / f"{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def param_digest(torch, tensors) -> list:
+    """An exact integer checksum of each tensor's bits: the sum of its words
+    and their sum weighted by position, in int64 on the tensor's device."""
+    out = []
+    for t in tensors:
+        word = {2: torch.int16, 4: torch.int32}[t.element_size()]
+        x = t.detach().reshape(-1).view(word).long()
+        pos = torch.arange(1, x.numel() + 1, device=x.device)
+        out.append((int(x.sum()), int((x * pos).sum())))
+    return out
+
+
+def _card_pipeline(torch, state_path):
+    """parity_setup's reduced fp32 models on the card, TF32 off, with the
+    weights saved at `state_path`."""
+    from vexpress_torch.pipelines import VExpressPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = VExpressPipeline(reduced_models(torch), device="cuda")
+    state = torch.load(state_path, weights_only=True)
+    for name, mod in pipe.components().items():
+        mod.load_state_dict(state[name])
+    return pipe
+
+
+def _sharded_parity_job(torch, mesh, state_path, kw):
+    from vexpress_torch.ops import launches
+
+    pipe = _card_pipeline(torch, state_path)
+    launches.reset()
+    latents = pipe(mode="sharded", mesh=mesh, return_latents=True, **kw)
+    torch.cuda.synchronize()
+    return dict(latents=latents, launches={k: n for k, n in launches.counts.items() if n})
+
+
+def _dp_steps(torch, pipe, cfg, batch, mesh, steps: int, seed: int):
+    """`steps` train steps of build_train_step on this rank's rows of
+    `batch` (all of them without a mesh): the losses, the gradients the
+    optimizer stepped with at step 1 (on the CPU), each step's digest of
+    the trainable tensors, and the tensors at the end (on the CPU)."""
+    from vexpress_torch.train import TrainState, build_train_step, make_optimizer
+
+    optimizer, _ = make_optimizer(pipe.components(), cfg, mesh)
+    step_fn, _ = build_train_step(pipe, cfg, optimizer)
+    b = batch["target_images"].shape[0] // (1 if mesh is None else mesh.size)
+    r = 0 if mesh is None else mesh.rank
+    mine = {k: v[r * b:(r + 1) * b].to(pipe.device) for k, v in batch.items()}
+    grads, inner_step = [], optimizer.inner.step
+
+    def spy():
+        if not grads:
+            grads.extend(p.grad.detach().cpu() for p in optimizer.params)
+        return inner_step()
+
+    optimizer.inner.step = spy
+    state, gen = TrainState(pipe.components(), optimizer), torch.Generator().manual_seed(seed)
+    losses, digests = [], []
+    for _ in range(steps):
+        state, metrics = step_fn(state, mine, gen)
+        losses.append(metrics["loss"].cpu())
+        digests.append(param_digest(torch, optimizer.params))
+    optimizer.inner.step = inner_step
+    return dict(losses=losses, grads=grads, digests=digests,
+                params=[p.detach().cpu() for p in optimizer.params],
+                state_tensors=sum(1 for p in optimizer.params if optimizer.inner.state[p]))
+
+
+def _dp_parity_job(torch, mesh, state_path, cfg, batch):
+    from vexpress_torch.ops import launches
+
+    pipe = _card_pipeline(torch, state_path)
+    launches.reset()
+    out = _dp_steps(torch, pipe, cfg, batch, mesh, steps=2, seed=5)
+    torch.cuda.synchronize()
+    return dict(out, launches={k: n for k, n in launches.counts.items() if n})
+
+
+def _world1_job(torch, mesh, state_path, kw, cfg, batch):
+    """On a one-rank NCCL group: a streamed and a sharded pipeline call; 2
+    plain train steps twice (does the card's training step reproduce as it
+    is?); then, with PyTorch's deterministic algorithms, 2 plain train steps
+    twice and 2 data-parallel ones; each run from the same weights."""
+    import torch.distributed as dist
+
+    pipe = _card_pipeline(torch, state_path)
+    streamed = pipe(return_latents=True, **kw)
+    sharded = pipe(mode="sharded", mesh=mesh, return_latents=True, **kw)
+
+    def two_steps(m):
+        return _dp_steps(torch, _card_pipeline(torch, state_path), cfg, batch, m, steps=2, seed=5)
+
+    eager = [two_steps(None), two_steps(None)]
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    plain = [two_steps(None), two_steps(None)]
+    return dict(streamed=streamed, sharded=sharded, backend=str(dist.get_backend()),
+                eager=eager, plain=plain, dp=two_steps(mesh))
+
+
+def dist_parity_phase(torch) -> dict:
+    """The data-parallel path on parity_setup's reduced fp32 models, on the
+    card: (a) the pipeline in mode="sharded" on 2 ranks against the same call
+    streamed in this process (the CLI parity call's settings with DDIM);
+    (b) 2 stage-3 train steps on 2 ranks with batch 1 each against the
+    batch-2 step on the CPU with the same draws; (c) a one-rank group on
+    NCCL, whose sharded call must equal the streamed call bitwise, and whose
+    data-parallel steps the plain steps, under PyTorch's deterministic
+    algorithms (whether the plain steps reproduce without them is logged)."""
+    import numpy as np
+    from vexpress_torch.train import TrainConfig, build_train_step, make_optimizer, sample_draws
+
+    card, cpu = card_and_cpu_pipelines(torch, seed=41)
+    kw = parity_call_kwargs()
+    workdir = tempfile.TemporaryDirectory(prefix="dist_parity_")
+    state_path = str(pathlib.Path(workdir.name) / "state.pt")
+    torch.save({n: m.state_dict() for n, m in card.components().items()}, state_path)
+
+    # (a) the window-parallel pipeline
+    streamed = card(return_latents=True, **kw)
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, _sharded_parity_job, DIST_RANKS, state_path, kw)
+    sharded_s = time.perf_counter() - t0
+    lat = [r["latents"] for r in ranks]
+    ranks_equal = all(np.array_equal(x, lat[0]) for x in lat)
+    sharded_err = float(np.abs(lat[0] - streamed).max())
+    sharded_ok = bool(np.allclose(lat[0], streamed, atol=1e-5, rtol=1e-5))
+    sharded_launches = [r["launches"] for r in ranks]
+
+    # (b) the data-parallel step against the batch-2 step on the CPU
+    size, frames = TRAIN_PARITY_SIZE, TRAIN_PARITY_FRAMES
+    lat_hw = size // 8
+    rows = [synthetic_train_batch(torch, size, frames, 16, seed=4 + r, device="cpu")
+            for r in range(DIST_RANKS)]
+    batch = {k: torch.cat([row[k] for row in rows]) for k in rows[0]}
+    cfg = TrainConfig.stage("stage_3", num_frames=frames, learning_rate=1e-5, adam_epsilon=1e-3,
+                            lip_loss_weight=2.0, max_grad_norm=1e9)
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, _dp_parity_job, DIST_RANKS, state_path, cfg, batch)
+    dp_s = time.perf_counter() - t0
+    opt, _ = make_optimizer(cpu.components(), cfg)
+    _, loss_fn = build_train_step(cpu, cfg, opt)
+    draws = sample_draws(torch.Generator().manual_seed(5), cfg, DIST_RANKS, frames,
+                         (lat_hw, lat_hw))
+    loss = loss_fn(cpu.components(), batch, draws)
+    loss.backward()
+    cpu_loss = float(loss.detach())
+    loss_rel = max(abs(float(r["losses"][0]) - cpu_loss) / abs(cpu_loss) for r in ranks)
+    cpu_grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in opt.params]
+    grad_rel = max(float((g - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                   for g, ref in zip(ranks[0]["grads"], cpu_grads))
+    dp_equal = (all(r["digests"] == ranks[0]["digests"] for r in ranks)
+                and all(torch.equal(a, b) for r in ranks
+                        for a, b in zip(r["params"], ranks[0]["params"])))
+    owned = [r["state_tensors"] for r in ranks]
+    dp_launches = [r["launches"] for r in ranks]
+
+    # (c) one rank over NCCL
+    t0 = time.perf_counter()
+    (one,) = run_ranks(torch, _world1_job, 1, state_path, kw, cfg,
+                       {k: v[:1] for k, v in batch.items()}, backend=None,
+                       env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})  # deterministic cuBLAS
+    world1_s = time.perf_counter() - t0
+    w1_pipe = bool(np.array_equal(one["sharded"], one["streamed"]))
+
+    def same_steps(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(a["losses"], b["losses"]))
+                and all(torch.equal(x, y) for x, y in zip(a["params"], b["params"])))
+
+    w1_eager = same_steps(*one["eager"])
+    w1_control = same_steps(*one["plain"])
+    w1_steps = same_steps(one["dp"], one["plain"][0])
+    workdir.cleanup()
+    log(f"[dist_parity] (a) sharded on {DIST_RANKS} ranks (gloo, one card) against streamed: "
+        f"max|d| {sharded_err:.3e} (allclose 1e-5: {sharded_ok}), ranks bitwise equal "
+        f"{ranks_equal}, launches by rank {sharded_launches}, {sharded_s:.1f} s; (b) stage-3 "
+        f"data-parallel step against the CPU batch-2 step: loss rel {loss_rel:.2e}, worst "
+        f"gradient max|d|/max|g| {grad_rel:.2e}, params after 2 steps equal across ranks "
+        f"{dp_equal}, tensors with state by rank {owned} of {len(opt.params)}, launches by rank "
+        f"{dp_launches}, {dp_s:.1f} s; (c) one rank over {one['backend']}: sharded = streamed "
+        f"{w1_pipe}; plain steps = plain steps again {w1_eager}; deterministic algorithms "
+        f"on: plain steps = plain steps again "
+        f"{w1_control}, data-parallel steps = plain steps {w1_steps}, {world1_s:.1f} s")
+    if not (sharded_ok and ranks_equal):
+        raise PhaseError(f"sharded against streamed: max|d| {sharded_err:.3e}, ranks equal "
+                         f"{ranks_equal}")
+    if any(not r.get("flash_fwd") or r.get("flash_sdpa_reference") for r in sharded_launches):
+        raise PhaseError(f"the sharded ranks did not all run K1: {sharded_launches}")
+    if loss_rel > 1e-5 or grad_rel > 1e-4 or not dp_equal:
+        raise PhaseError(f"data-parallel step: loss rel {loss_rel:.2e} (<= 1e-5), gradient "
+                         f"{grad_rel:.2e} (<= 1e-4), ranks equal {dp_equal}")
+    if sum(owned) != len(opt.params) or min(owned) == 0:
+        raise PhaseError(f"optimizer state on {owned} tensors by rank, {len(opt.params)} trained")
+    if not (w1_pipe and w1_control and w1_steps):
+        raise PhaseError(f"one rank over NCCL: sharded = streamed {w1_pipe}, plain steps "
+                         f"reproduce {w1_control}, data-parallel steps = plain {w1_steps}")
+    return dict(sharded_max_abs_err=sharded_err, sharded_ranks_equal=ranks_equal,
+                sharded_launches=sharded_launches, sharded_s=sharded_s, dp_loss_rel=loss_rel,
+                dp_worst_grad_rel=grad_rel, dp_ranks_equal=dp_equal, dp_state_tensors=owned,
+                dp_launches=dp_launches, dp_s=dp_s, world1_backend=one["backend"],
+                world1_sharded_equal=w1_pipe, world1_eager_repeats=w1_eager,
+                world1_plain_repeats=w1_control,
+                world1_steps_equal=w1_steps, world1_s=world1_s)
+
+
+def _sharded_job(torch, mesh, argv, frames):
+    """The inference CLI's build_pipeline and generate on this rank, K2 on:
+    the planes (rank 0), the final latents, times, peak and launches."""
+    from vexpress_torch.cli import infer
+    from vexpress_torch.ops import flash, launches
+
+    args = infer.parse_args(argv)
+    size = args.image_width
+    ref, kps, wave = synthetic_inputs(size, size, frames, seed=1)
+    inputs = dict(reference_image=ref, kps_images=kps, audio=wave, video_length=frames)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = infer.build_pipeline(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    final, denoise = {}, pipe._denoise_streamed
+
+    def keep_latents(*a, **k):
+        final["latents"] = denoise(*a, **k)
+        return final["latents"]
+
+    pipe._denoise_streamed = keep_latents
+    flash.FLASH_LITE = True
+    launches.reset()
+    t0 = time.perf_counter()
+    planes = infer.generate(pipe, inputs, args, output_yuv420=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    return dict(planes=planes, latents=final["latents"].cpu().numpy(), build_s=build_s,
+                generate_s=run_s, phases_s=dict(pipe.timings),
+                peak_alloc_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches={k: n for k, n in launches.counts.items() if n},
+                lite_by_shape={k[1:]: n for k, n in launches.shapes.items()
+                               if k[0] == "flash_lite_fwd"})
+
+
+def sharded_phase(torch) -> dict:
+    """The inference CLI at cli_full's settings plus --do_multi_devices_inference
+    on 2 ranks sharing the card (gloo): 44 synthetic 512x512 frames, 2
+    windows, one a rank. Rank 0's video against cli_full's (PSNR of the
+    YUV420 planes > 45 dB), the ranks' latents bitwise equal, and each
+    rank's K2 launches against those reckoned for its windows."""
+    import numpy as np
+    from vexpress_torch.models import UNetConfig
+    from vexpress_torch.parallel.mesh import Mesh, local_window_tables
+    from vexpress_torch.pipelines.context import compute_context_windows
+
+    frames = FULL_FRAMES
+    argv = CLI_FULL_ARGV + ["--do_multi_devices_inference"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, _sharded_job, DIST_RANKS, argv, frames)
+    wall_s = time.perf_counter() - t0
+    windows, inv = compute_context_windows(frames, FULL_CONTEXT, FULL_OVERLAP)
+    expected = [expected_flash_launches(
+        UNetConfig(), FULL_SIZE // 8, FULL_SIZE // 8, FULL_CONTEXT,
+        CLI_STEPS * local_window_tables(windows, inv, Mesh(None, r, DIST_RANKS))[0].shape[0])
+        for r in range(DIST_RANKS)]
+    latents_equal = all(np.array_equal(r["latents"], ranks[0]["latents"]) for r in ranks)
+    ref = KEPT["cli_full_planes"]
+    got = ranks[0]["planes"]
+    flat = [np.concatenate([p.reshape(-1) for p in planes]).astype(np.float64) / 255.0
+            for planes in (got, ref)]
+    psnr = _psnr(flat[0], flat[1])
+    max_diff = int(max(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()
+                       for a, b in zip(got, ref)))
+    lite = [r["launches"].get("flash_lite_fwd", 0) for r in ranks]
+    log(f"[sharded] cli.infer with --do_multi_devices_inference on {DIST_RANKS} ranks (gloo, one "
+        f"card), cli_full's settings: wall {wall_s:.1f} s; by rank build "
+        f"{[round(r['build_s'], 1) for r in ranks]} s, generate "
+        f"{[round(r['generate_s'], 1) for r in ranks]} s, phases "
+        f"{[r['phases_s'] for r in ranks]}, peak {[round(r['peak_alloc_gib'], 2) for r in ranks]} "
+        f"GiB, K2 launches {lite} (reckoned {expected}), launches "
+        f"{[r['launches'] for r in ranks]}; "
+        f"rank 1's output {ranks[1]['planes']}; latents bitwise equal across ranks "
+        f"{latents_equal}; rank 0's planes against cli_full's: PSNR {psnr:.2f} dB, max|d| "
+        f"{max_diff}")
+    if got is None or ranks[1]["planes"] is not None:
+        raise PhaseError("rank 0 must return the video and rank 1 nothing")
+    if not latents_equal:
+        raise PhaseError("the ranks' latents differ")
+    if not psnr > 45.0:
+        raise PhaseError(f"rank 0's video against cli_full's: PSNR {psnr:.2f} dB (needs > 45)")
+    if lite != expected or any(set(r["launches"]) != {"flash_lite_fwd"} for r in ranks):
+        raise PhaseError(f"launches by rank {[r['launches'] for r in ranks]}; K2 reckoned "
+                         f"{expected} and nothing else")
+    checked = {_shape_key(row) for row in K1_SHAPES}
+    if any(not set(r["lite_by_shape"]) <= checked for r in ranks):
+        raise PhaseError(f"K2 ran at shapes the kernel phase does not check: "
+                         f"{[sorted(r['lite_by_shape']) for r in ranks]}")
+    return dict(wall_s=wall_s, build_s=[r["build_s"] for r in ranks],
+                generate_s=[r["generate_s"] for r in ranks],
+                phases_s=[r["phases_s"] for r in ranks],
+                peak_alloc_gib=[r["peak_alloc_gib"] for r in ranks], lite_launches=lite,
+                expected_launches=expected, latents_equal=latents_equal, psnr_db=psnr,
+                max_abs_diff=max_diff,
+                lite_launches_by_shape=[[[*k, n] for k, n in sorted(r["lite_by_shape"].items())]
+                                        for r in ranks])
+
+
+TRAIN_DP_STEPS = 3
+
+
+def _train_dp_job(torch, mesh, cfg, steps):
+    """The training CLI's train() on this rank with synthetic batches (its
+    own rows of each global batch): losses, step times and split, the
+    collectives' times, a digest of the trainable tensors after each step,
+    the optimizer-state bytes it keeps, peak and launches."""
+    import hashlib
+
+    from vexpress_torch import train as vt
+    from vexpress_torch.cli import train as train_cli
+    from vexpress_torch.ops import launches
+    from vexpress_torch.train import train_step as vts
+
+    size, frames = cfg["data"]["train_width"], cfg["data"]["num_frames"]
+    cfg_path = pathlib.Path(cfg["output_dir"]) / f"stage_2_rank{mesh.rank}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    args = train_cli.parse_args(["--config", str(cfg_path), "--dtype", "bf16",
+                                 "--max_steps_override", str(steps)])
+
+    def batches():
+        for i in range(steps):
+            batch = synthetic_train_batch(torch, size, frames, 768,
+                                          seed=3 + mesh.size * i + mesh.rank, device="cpu")
+            yield {k: v.numpy() for k, v in batch.items()}
+
+    split, digests, comm = [], [], []
+    real_build = vt.build_train_step
+
+    def timed_build(pipeline, tcfg, optimizer, *a, **kw):
+        step_fn, loss_fn = real_build(pipeline, tcfg, optimizer, *a, **kw)
+        split.append(StepSplit(torch, pipeline.denoising_unet, optimizer))
+
+        def timed_step(*step_args):
+            split[0].begin()
+            comm.append({})
+            out = step_fn(*step_args)
+            digests.append(param_digest(torch, optimizer.params))
+            return out
+
+        return timed_step, loss_fn
+
+    def timed(name, fn):
+        def run(tensors, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tensors, *a)
+            torch.cuda.synchronize()
+            if comm and len(tensors) > 1:  # the gradients' all-reduce, the owners' broadcast
+                comm[-1][name] = comm[-1].get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    real_reduce, real_bcast = vts.all_reduce_mean, vts.broadcast_owned
+    vt.build_train_step = timed_build
+    vts.all_reduce_mean = timed("all_reduce_s", real_reduce)
+    vts.broadcast_owned = timed("broadcast_s", real_bcast)
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    try:
+        t0 = time.perf_counter()
+        run = train_cli.train(cfg, args, batches())
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        vt.build_train_step = real_build
+        vts.all_reduce_mean, vts.broadcast_owned = real_reduce, real_bcast
+        for sp in split:
+            sp.remove()
+    opt = run["state"].optimizer
+
+    def nbytes(v):
+        parts = (v.codes, v.scales) if hasattr(v, "codes") else (v,)
+        return sum(x.numel() * x.element_size() for x in parts)
+
+    state_bytes = sum(nbytes(v) for p in opt.owned() for v in opt.inner.state[p].values())
+    sha = hashlib.sha256()
+    for p in opt.params:
+        sha.update(p.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return dict(losses=run["losses"], step_s=run["step_s"], wall_s=wall_s,
+                splits=split[0].splits(), comm_s=comm, digests=digests, sha256=sha.hexdigest(),
+                state_bytes=state_bytes, owned=len(opt.owned()), trained=len(opt.params),
+                trained_params=sum(p.numel() for p in opt.params),
+                peak_alloc_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches={k: n for k, n in launches.counts.items() if n},
+                by_shape=dict(launches.shapes))
+
+
+def train_dp_phase(torch) -> dict:
+    """The training CLI's train() on 2 ranks sharing the card (gloo):
+    STAGE_2 (8-bit Adam, checkpointed UNet), bf16, 20 frames at 512x512,
+    batch 1 a rank, TRAIN_DP_STEPS steps, the checkpoint and the trained
+    modules' exports at the last. Losses finite, the trainable tensors
+    bitwise equal across ranks after every step, each rank's optimizer state
+    within 10% of half the whole, each rank's K1 backward launches as
+    reckoned for batch 1."""
+    import shutil
+
+    from vexpress_torch.cli.train import train_config
+    from vexpress_torch.models import UNetConfig
+
+    with tempfile.TemporaryDirectory(prefix="train_dp_") as out_dir:
+        cfg = dict(json.loads(json.dumps(STAGE_2)), checkpointing_steps=TRAIN_DP_STEPS,
+                   save_all=False, output_dir=out_dir, seed=0)
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, _train_dp_job, DIST_RANKS, cfg, TRAIN_DP_STEPS)
+        wall_s = time.perf_counter() - t0
+        out = pathlib.Path(out_dir)
+        files = sorted(str(f.relative_to(out)) for f in out.rglob("*") if f.is_file()
+                       and not f.name.endswith(".json"))
+        written_gib = sum(f.stat().st_size for f in out.rglob("*") if f.is_file()) / 2**30
+        free_gib = shutil.disk_usage(out_dir).free / 2**30
+    size, frames = STAGE_2["data"]["train_width"], STAGE_2["data"]["num_frames"]
+    lat = size // 8
+    per_step = expected_bwd_launches(train_config(STAGE_2, DIST_RANKS), UNetConfig(), lat, lat,
+                                     frames)
+    expected = {k: n * TRAIN_DP_STEPS for k, n in per_step.items()}
+    measured = [{k: n for k, n in r["by_shape"].items() if k[0].startswith("flash_bwd")}
+                for r in ranks]
+    total = sum(r["state_bytes"] for r in ranks)
+    share = [r["state_bytes"] / (total / DIST_RANKS) for r in ranks]
+    digests_equal = all(r["digests"] == ranks[0]["digests"] for r in ranks)
+    sha_equal = len({r["sha256"] for r in ranks}) == 1
+    losses = ranks[0]["losses"]
+    later = {r_i: r["step_s"][1:] for r_i, r in enumerate(ranks)}
+    split_mean = [{k: sum(s[k] for s in r["splits"][1:]) / (TRAIN_DP_STEPS - 1)
+                   for k in r["splits"][0]} for r in ranks]
+    comm_mean = [{k: sum(c.get(k, 0.0) for c in r["comm_s"][1:]) / (TRAIN_DP_STEPS - 1)
+                  for k in ("all_reduce_s", "broadcast_s")} for r in ranks]
+    log(f"[train_dp] cli.train.train on {DIST_RANKS} ranks (gloo, one card), stage 2, bf16, "
+        f"{size}x{size}, {frames} frames, batch 1 a rank (global {DIST_RANKS}), "
+        f"{TRAIN_DP_STEPS} steps, {ranks[0]['trained_params'] / 1e6:.1f} M trainable params in "
+        f"{ranks[0]['trained']} tensors: wall {wall_s:.1f} s (train() by rank "
+        f"{[round(r['wall_s'], 1) for r in ranks]}); step s by rank "
+        f"{[[round(x, 3) for x in r['step_s']] for r in ranks]}; split of steps 2-"
+        f"{TRAIN_DP_STEPS} by rank {json.dumps(split_mean)}, all-reduce and broadcast in it "
+        f"{json.dumps(comm_mean)}; step 1 split {json.dumps([r['splits'][0] for r in ranks])}; "
+        f"peak by rank {[round(r['peak_alloc_gib'], 2) for r in ranks]} GiB; losses {losses} "
+        f"(rank 1 {ranks[1]['losses']}); digests equal after every step {digests_equal}, "
+        f"final sha256 equal {sha_equal}; optimizer state by rank "
+        f"{[r['state_bytes'] for r in ranks]} bytes ({[round(x, 4) for x in share]} of half), "
+        f"tensors owned {[r['owned'] for r in ranks]}; files {files} ({written_gib:.2f} GiB, "
+        f"{free_gib:.0f} GiB free there); launches by rank {[r['launches'] for r in ranks]}; "
+        f"backward by rank {[sorted(m.items()) for m in measured]}, reckoned a rank "
+        f"{sorted(expected.items())}")
+    if len(losses) != TRAIN_DP_STEPS or not all(math.isfinite(x) for x in losses) \
+            or any(r["losses"] != losses for r in ranks):
+        raise PhaseError(f"losses by rank {[r['losses'] for r in ranks]}")
+    if not (digests_equal and sha_equal):
+        raise PhaseError("the ranks' trainable tensors differ")
+    if any(abs(x - 1.0) > 0.1 for x in share) or sum(r["owned"] for r in ranks) != \
+            ranks[0]["trained"]:
+        raise PhaseError(f"optimizer state by rank {[r['state_bytes'] for r in ranks]} bytes, "
+                         f"owned {[r['owned'] for r in ranks]} of {ranks[0]['trained']}")
+    if any(m != expected for m in measured):
+        raise PhaseError(f"K1 backward launches by rank {measured}, reckoned {expected}")
+    checked = {_shape_key(row) for row in K1_SHAPES + TRAIN_K1_SHAPES}
+    ran = {k[1:] for r in ranks for k in r["by_shape"]
+           if k[0] in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    if not ran <= checked:
+        raise PhaseError(f"K1 ran at shapes {sorted(ran)}; the kernel phase checks "
+                         f"{sorted(checked)}")
+    if any(r["launches"].get("flash_sdpa_reference") or r["launches"].get(
+            "flash_sdpa_bwd_reference") for r in ranks):
+        raise PhaseError(f"a plain flash version ran: {[r['launches'] for r in ranks]}")
+    want_files = {f"checkpoints/checkpoint-{TRAIN_DP_STEPS}/train_state.pt",
+                  f"denoising_unet-{TRAIN_DP_STEPS}.pth", f"motion_module-{TRAIN_DP_STEPS}.pth",
+                  f"audio_projection-{TRAIN_DP_STEPS}.pth", "metrics.jsonl"}
+    if not want_files <= set(files):
+        raise PhaseError(f"the run wrote {files}; expected {sorted(want_files)} among them")
+    return dict(wall_s=wall_s, step_s=[r["step_s"] for r in ranks],
+                steps_2_on_s=[sum(x) / len(x) for x in later.values()], split_s=split_mean,
+                comm_s=comm_mean, step1_split_s=[r["splits"][0] for r in ranks],
+                peak_alloc_gib=[r["peak_alloc_gib"] for r in ranks], losses=losses,
+                state_bytes=[r["state_bytes"] for r in ranks], state_share_of_half=share,
+                owned=[r["owned"] for r in ranks], trained_tensors=ranks[0]["trained"],
+                written_gib=written_gib, launches=[r["launches"] for r in ranks],
+                bwd_launches_by_shape=[[[*k, n] for k, n in sorted(m.items())] for m in measured],
+                fwd_launches_by_shape=[[[*k[1:], n] for k, n in sorted(r["by_shape"].items())
+                                        if k[0] == "flash_fwd"] for r in ranks])
+
+
 def kernels_line(results: dict) -> list:
     """The `kernels` JSON entries: each kernel's launches on the main paths
-    (inference `full`, training `train_full` and `train_cli`) and its times summed over the
+    (inference `full` and `cli_full`, training `train_full` and `train_cli`,
+    and each rank of `sharded` and `train_dp`) and its times summed over the
     main-path shapes at which those runs launched it, one call each."""
     inf_by_shape = {tuple(key): n for *key, n in results["full"]["flash_launches_by_shape"]}
-    train_paths = ("train_full", "train_cli")
-    train_fwd = {p: {tuple(key): n for *key, n in results[p]["fwd_launches_by_shape"]}
-                 for p in train_paths}
-    train_bwd = {p: {tuple(key): n for *key, n in results[p]["bwd_launches_by_shape"]}
-                 for p in train_paths}
+    # the training paths: train_full, train_cli, and each rank of train_dp
+    dp = results["train_dp"]
+    train_paths = ("train_full", "train_cli") + tuple(f"train_dp_rank{i}"
+                                                      for i in range(len(dp["launches"])))
+    counts = {p: results[p]["launches"] for p in train_paths[:2]}
+    counts.update({f"train_dp_rank{i}": c for i, c in enumerate(dp["launches"])})
+    fwd_rows_by = {p: results[p]["fwd_launches_by_shape"] for p in train_paths[:2]}
+    fwd_rows_by.update({f"train_dp_rank{i}": c for i, c in enumerate(dp["fwd_launches_by_shape"])})
+    bwd_rows_by = {p: results[p]["bwd_launches_by_shape"] for p in train_paths[:2]}
+    bwd_rows_by.update({f"train_dp_rank{i}": c for i, c in enumerate(dp["bwd_launches_by_shape"])})
+    train_fwd = {p: {tuple(key): n for *key, n in fwd_rows_by[p]} for p in train_paths}
+    train_bwd = {p: {tuple(key): n for *key, n in bwd_rows_by[p]} for p in train_paths}
     fwd_rows = results["kernel"]["rows"]
     grad_rows = results["kernel"]["grad_rows"]
     for r in fwd_rows:
         r["launches"] = inf_by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
     for r in grad_rows:
-        if r["stage"] != 2:  # train_full and train_cli run stage 2 only
+        if r["stage"] != 2:  # the training paths run stage 2 only
             continue
         key = (r["B"], r["Lq"], r["Lk"], r["D"])
         r["launches_by_path"] = {p: dict(flash_fwd=train_fwd[p].get(key, 0),
@@ -1815,16 +2396,13 @@ def kernels_line(results: dict) -> list:
                  + [(r["fwd_ms"], r["plain_fwd_ms"], r["sdpa_fwd_ms"], r["bounds"]["fwd"]["ms"],
                      r["bounds"]["fwd"]["by"], r["errors"]["out"]["max_abs_err"])
                     for r in main_grad if r["launches"]["flash_fwd"]])
-    inf_n, train_n = results["full"]["flash_launches"], results["train_full"]["launches"].get(
-        "flash_fwd", 0)
-    cli_train_n = results["train_cli"]["launches"].get("flash_fwd", 0)
+    fwd_by_path = dict(full=results["full"]["flash_launches"],
+                       **{p: counts[p].get("flash_fwd", 0) for p in train_paths})
     sources = ["vexpress_torch/csrc/flash_fwd_wgmma.cuh (bf16)",
                "vexpress_torch/csrc/flash_fwd.cu (launch, fp32)"]
     kernels = [entry("flash_fwd", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
-                     "vexpress_tpu/ops/flash.py:42", fwd_parts, inf_n + train_n + cli_train_n,
-                     sources=sources,
-                     launches_by_path=dict(full=inf_n, train_full=train_n,
-                                           train_cli=cli_train_n),
+                     "vexpress_tpu/ops/flash.py:42", fwd_parts, sum(fwd_by_path.values()),
+                     sources=sources, launches_by_path=fwd_by_path,
                      shapes=fwd_rows + [dict(r, kernel="flash_fwd") for r in main_grad])]
     for name, key, grads, lib_line in (
             ("flash_bwd_dkv", "dkv", ("dk", "dv"), ":941 _flash_attention_bwd_dkv"),
@@ -1832,10 +2410,10 @@ def kernels_line(results: dict) -> list:
         parts = [(r[f"{key}_ms"], r["plain_bwd_ms"], r["sdpa_bwd_ms"], r["bounds"][key]["ms"],
                   r["bounds"][key]["by"], max(r["errors"][g]["max_abs_err"] for g in grads))
                  for r in main_grad if r["launches"][name]]
-        by_path = {p: results[p]["launches"].get(name, 0) for p in train_paths}
+        by_path = {p: counts[p].get(name, 0) for p in train_paths}
         extra = dict(launches_by_path=by_path)
         if name == "flash_bwd_dkv":
-            extra["split_sum_launches"] = sum(results[p]["launches"].get("flash_bwd_dkv_sum", 0)
+            extra["split_sum_launches"] = sum(counts[p].get("flash_bwd_dkv_sum", 0)
                                               for p in train_paths)
         kernels.append(entry(
             name, "vexpress_torch/csrc/flash_bwd_wgmma.cuh",
@@ -1849,19 +2427,28 @@ def kernels_line(results: dict) -> list:
                        "once, its own di included), from one saved forward",
             pair_bound_ms=sum(r["bounds"]["pair"]["ms"] for r in main_grad),
             shapes=grad_rows, **extra))
-    cli_by_shape = {tuple(key): n for *key, n in results["cli_full"]["lite_launches_by_shape"]}
+    lite_paths = {"cli_full": results["cli_full"]["lite_launches_by_shape"],
+                  **{f"sharded_rank{i}": rows for i, rows in
+                     enumerate(results["sharded"]["lite_launches_by_shape"])}}
+    lite_by = {p: {tuple(key): n for *key, n in rows} for p, rows in lite_paths.items()}
     lite_rows = results["kernel"]["lite_rows"]
     for r in lite_rows:
-        r["launches"] = cli_by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
+        key = (r["B"], r["Lq"], r["Lk"], r["D"])
+        r["launches_by_path"] = {p: by.get(key, 0) for p, by in lite_by.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
     ran = [r for r in lite_rows if r["main_path"] and r["launches"]]
     kernels.append(entry(
         "flash_lite_fwd", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
         "vexpress_tpu/ops/flash_lite.py:68 flash_lite_fwd (pallas_call :89, body _fwd_kernel :33)",
         [(r["kernel_ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
-          r["max_abs_err"]) for r in ran], results["cli_full"]["lite_launches"],
+          r["max_abs_err"]) for r in ran],
+        results["cli_full"]["lite_launches"] + sum(results["sharded"]["lite_launches"]),
         plain_is="flash_lite_reference", sources=sources, k1_ms=sum(r["k1_ms"] for r in ran),
         exps=sum(r["exps"] for r in ran),
-        launches_by_path=dict(cli_full=results["cli_full"]["lite_launches"]), shapes=lite_rows))
+        launches_by_path=dict(cli_full=results["cli_full"]["lite_launches"],
+                              **{f"sharded_rank{i}": n for i, n in
+                                 enumerate(results["sharded"]["lite_launches"])}),
+        shapes=lite_rows))
     av = results["attn_variants"]
     for name, source, replaces, plain_is in (
             ("flash_fwd_variant", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
@@ -1921,6 +2508,9 @@ def main() -> int:
                       ("train_full", lambda: train_full_phase(torch)),
                       ("train_cli", lambda: train_cli_phase(torch)),
                       ("cli_full", lambda: cli_full_phase(torch)),
+                      ("dist_parity", lambda: dist_parity_phase(torch)),
+                      ("sharded", lambda: sharded_phase(torch)),
+                      ("train_dp", lambda: train_dp_phase(torch)),
                       ("attn_variants", lambda: attn_variants_phase(torch)),
                       ("trace", lambda: trace_phase(torch))):
         gc.collect()  # what an earlier phase left must not count in this one's memory

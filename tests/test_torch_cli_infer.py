@@ -287,8 +287,7 @@ def test_cli_generates_video(tmp_path):
     assert shape == (7, 64, 64)
 
 
-@pytest.mark.parametrize("flag,value", [("--do_multi_devices_inference", None),
-                                        ("--mode", "sharded"), ("--mode", "fused")])
+@pytest.mark.parametrize("flag,value", [("--mode", "fused")])
 def test_cli_unported_options_raise(flag, value):
     from vexpress_torch.cli import infer
 
@@ -296,3 +295,32 @@ def test_cli_unported_options_raise(flag, value):
                             + ([value] if value else []))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         infer.build_pipeline(args)
+
+
+@pytest.mark.parametrize("flags", [["--do_multi_devices_inference"], ["--mode", "sharded"]])
+def test_cli_multi_device_flags_take_the_sharded_mode(flags, tmp_path, monkeypatch, capsys):
+    """--do_multi_devices_inference and --mode sharded (once refused) join a
+    process group before the models are built: without torchrun's
+    environment, this process alone. tests/test_torch_parallel.py runs the
+    CLI as 2 processes."""
+    import torch.distributed as dist
+
+    from vexpress_torch.cli import infer
+
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    ov_path = str(tmp_path / "tiny_models.yaml")
+    with open(ov_path, "w") as f:
+        yaml.safe_dump(TINY_OVERRIDES, f)
+    args = infer.parse_args(["--reference_image_path", "r", "--audio_path", "a", "--device",
+                             "cpu", "--dtype", "fp32", "--model_overrides_path", ov_path,
+                             "--vae_path", str(tmp_path / "missing"), *flags])
+    try:
+        pipe = infer.build_pipeline(args)
+        assert infer.denoise_mode(args) == "sharded"
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert pipe.device.type == "cpu"
+    assert "sharding context windows over 1 devices" in capsys.readouterr().out

@@ -212,8 +212,9 @@ def _grad_row(stage, main_path, b=1, lq=4096, lk=4096, d=40):
 def test_kernels_line_gives_train_full_launches_to_stage_2_rows_only():
     """chip_smoke.py's kernels line holds only what its run measured: a stage-3
     row at the same (B, Lq, Lk, D) as a stage-2 row does not take train_full's
-    (or train_cli's) launches, and no row carries stage 3's reckoned
-    launches; a stage-2 row sums the two stage-2 paths, path by path."""
+    (or train_cli's, or train_dp's ranks') launches, and no row carries stage
+    3's reckoned launches; a stage-2 row sums the stage-2 paths, path by path
+    and rank by rank; K2's line adds the sharded phase's ranks."""
     import chip_smoke
 
     fwd = dict(B=1, Lq=4096, Lk=4096, D=40, main_path=True, kernel_ms=1.0, plain_ms=2.0,
@@ -234,18 +235,29 @@ def test_kernels_line_gives_train_full_launches_to_stage_2_rows_only():
                                               ["flash_bwd_dq"] + key + [4]]),
         kernel=dict(rows=[fwd], lite_rows=[dict(fwd, k1_ms=1.0, exps=1)],
                     grad_rows=[_grad_row(2, True), _grad_row(3, False)]),
+        train_dp=dict(launches=[{"flash_fwd": 10, "flash_bwd_dkv": 2, "flash_bwd_dq": 2}] * 2,
+                      fwd_launches_by_shape=[[key + [10]]] * 2,
+                      bwd_launches_by_shape=[[["flash_bwd_dkv"] + key + [2],
+                                              ["flash_bwd_dq"] + key + [2]]] * 2),
         cli_full=dict(lite_launches=5, lite_launches_by_shape=[key + [5]]),
+        sharded=dict(lite_launches=[3, 3], lite_launches_by_shape=[[key + [3]]] * 2),
         attn_variants=dict(rows=[dict(variant, kernel="flash_fwd_variant"),
                                  dict(variant, kernel="splash_fwd")],
                            bench_launches={"flash_fwd_variant": 12, "splash_fwd": 12}))
     kernels = {k["name"]: k for k in chip_smoke.kernels_line(results)}
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
         stage2, stage3 = kernels[name]["shapes"]
+        rank = dict(flash_fwd=10, flash_bwd_dkv=2, flash_bwd_dq=2)
         assert stage2["launches_by_path"] == dict(
             train_full=dict(flash_fwd=25, flash_bwd_dkv=5, flash_bwd_dq=5),
-            train_cli=dict(flash_fwd=20, flash_bwd_dkv=4, flash_bwd_dq=4))
-        assert stage2["launches"] == dict(flash_fwd=45, flash_bwd_dkv=9, flash_bwd_dq=9)
+            train_cli=dict(flash_fwd=20, flash_bwd_dkv=4, flash_bwd_dq=4),
+            train_dp_rank0=rank, train_dp_rank1=rank)
+        assert stage2["launches"] == dict(flash_fwd=65, flash_bwd_dkv=13, flash_bwd_dq=13)
         assert "launches" not in stage3 and "launches_by_path" not in stage3
         assert not any("reckoned" in k for row in (stage2, stage3) for k in row)
-        assert kernels[name]["launches"] == 9
-        assert kernels[name]["launches_by_path"] == dict(train_full=5, train_cli=4)
+        assert kernels[name]["launches"] == 13
+        assert kernels[name]["launches_by_path"] == dict(train_full=5, train_cli=4,
+                                                         train_dp_rank0=2, train_dp_rank1=2)
+    lite = kernels["flash_lite_fwd"]
+    assert lite["launches"] == 11
+    assert lite["launches_by_path"] == dict(cli_full=5, sharded_rank0=3, sharded_rank1=3)

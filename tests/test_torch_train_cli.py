@@ -418,17 +418,33 @@ def test_train_cli_module_training_exports(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_it_cannot_do(tmp_path, monkeypatch):
-    """--device auto without a GPU raises (no silent CPU run); the
-    multi-process flags name ROADMAP item 11; unknown lora keys stop."""
+    """--device auto without a GPU raises (no silent CPU run); asked for 2
+    processes, the CLI raises when no peer joins (after the group's
+    timeout) or when nothing says where the group meets, and never trains
+    as one process; unknown lora keys stop."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from vexpress_torch.parallel import mesh
+
+    from .torch_dist_workers import free_port
+
     cfg, path = _train_cfg(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in ("auto", "cuda"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_cli.train(cfg, t_cli.parse_args(["--config", path, "--device", device]), iter(()))
-    for flag, value in (("--coordinator_address", "localhost:1234"), ("--num_processes", "2"),
-                        ("--process_id", "0")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-            t_cli.main(["--config", path, "--device", "cpu", flag, value])
+    monkeypatch.setattr(mesh, "TIMEOUT", datetime.timedelta(seconds=3))
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(dist.DistStoreError, match="1/2 clients joined"):
+        t_cli.main(["--config", path, "--device", "cpu", "--coordinator_address",
+                    f"127.0.0.1:{free_port()}", "--num_processes", "2", "--process_id", "0"])
+    with pytest.raises(ValueError, match="num_processes=2 needs coordinator_address"):
+        t_cli.main(["--config", path, "--device", "cpu", "--num_processes", "2"])
+    assert not dist.is_initialized()
+    assert not (pathlib.Path(cfg["output_dir"]) / "checkpoints").exists()
     with pytest.raises(SystemExit, match="unknown lora config keys"):
         t_cli.parse_lora({"lora": {"rank": 2, "dropout": 0.1}})
     with pytest.raises(FileNotFoundError):

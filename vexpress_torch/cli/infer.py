@@ -12,6 +12,12 @@ with the same flags and defaults:
 seeded random weights. VEXPRESS_FLASH_LITE=1 in the environment sends the
 flash-eligible attention to K2 (ops/flash_lite.py) instead of K1.
 
+`--do_multi_devices_inference` (or `--mode sharded`) spreads the context
+windows over the processes of a group, one a device: run it under torchrun
+(`torchrun --nproc_per_node N -m vexpress_torch.cli.infer ...`; without
+torchrun's environment the group is this process alone). Each process takes
+the CUDA device of its LOCAL_RANK; rank 0 writes the video.
+
 The work is split so that it can be driven without the files: build_pipeline
 (models, overrides, inference config, checkpoints, a LoRA adapter, stage_1),
 prepare_inputs (image, audio, keypoints: cv2 and the media runtime) and
@@ -77,10 +83,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--window_group", type=int, default=1,
                    help="context windows per UNet call (memory/throughput knob)")
     p.add_argument("--do_multi_devices_inference", action="store_true",
-                   help="shard context windows over devices (not ported yet: ROADMAP Queue 1 "
-                        "item 11)")
+                   help="shard context windows over the processes of a torchrun group, one a "
+                        "device")
     p.add_argument("--mode", type=str, default="",
-                   help="denoise mode; only 'streamed' (the default) is ported")
+                   help="denoise mode {streamed, sharded}; default sharded with "
+                        "--do_multi_devices_inference, else streamed")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of the pipeline call (host operations "
                         "and CUDA kernels) into this directory, as a Chrome trace file for "
@@ -107,29 +114,41 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _check_ported(args) -> None:
-    """Options whose code is not ported yet raise, naming their ROADMAP item."""
-    if args.do_multi_devices_inference or args.mode == "sharded":
-        raise NotImplementedError("--do_multi_devices_inference / --mode sharded: "
-                                  "window-parallel inference is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
-    if args.mode not in ("", "streamed"):
-        raise NotImplementedError(f"--mode {args.mode}: only 'streamed' is ported (the fused "
-                                  "mode is on ROADMAP's Not-to-port list)")
+    """Options whose code is not ported raise, naming ROADMAP."""
+    if args.mode not in ("", "streamed", "sharded"):
+        raise NotImplementedError(f"--mode {args.mode}: only 'streamed' and 'sharded' are "
+                                  "ported (the fused mode is on ROADMAP's Not-to-port list)")
     if args.audio_embeddings_type != "global":
         raise ValueError(f"audio_embeddings_type={args.audio_embeddings_type!r} is not "
                          "supported; only 'global' (reference inference.py:164-169)")
+
+
+def denoise_mode(args) -> str:
+    return args.mode or ("sharded" if args.do_multi_devices_inference else "streamed")
 
 
 def build_pipeline(args):
     """The pipeline the flags describe: models (dtype, UNet config, size
     overrides), the inference yaml (its scheduler, and its sampler unless
     --sampler is given), the checkpoints, the LoRA adapter, and stage_1's
-    zeroing."""
+    zeroing. In sharded mode it first joins the process group (torchrun's
+    environment) and builds on its rank's device."""
     from ..io import apply_model_overrides, default_pipeline_models, load_pipeline
     from ..models.unet_3d import UNetConfig
     from ..utils.misc import zero_params_matching
 
     _check_ported(args)
+    device = "cpu" if args.device == "cpu" else torch.device("cuda", args.gpu_id)
+    if denoise_mode(args) == "sharded":
+        import torch.distributed as dist
+
+        from ..parallel.mesh import initialize_distributed
+
+        initialize_distributed(backend="gloo" if args.device == "cpu" else None)
+        if args.device != "cpu":
+            device = torch.device("cuda", torch.cuda.current_device())
+        print(f"[vexpress] sharding context windows over {dist.get_world_size()} devices "
+              f"(rank {dist.get_rank()}, {device})")
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.dtype]
     models = default_pipeline_models(dtype=dtype)
     if args.unet_config_path:
@@ -156,8 +175,7 @@ def build_pipeline(args):
         audio_encoder_path=args.audio_encoder_path, reference_net_path=args.reference_net_path,
         denoising_unet_path=args.denoising_unet_path, motion_module_path=args.motion_module_path,
         v_kps_guider_path=args.v_kps_guider_path,
-        audio_projection_path=args.audio_projection_path, param_dtype=dtype,
-        device="cpu" if args.device == "cpu" else torch.device("cuda", args.gpu_id))
+        audio_projection_path=args.audio_projection_path, param_dtype=dtype, device=device)
     if args.lora_path:
         merge_lora_adapter(pipeline, args.lora_path, args.lora_scale)
         print(f"[vexpress] merged LoRA adapter {args.lora_path}"
@@ -265,13 +283,21 @@ def generate(pipeline, inputs: Dict[str, Any], args, output_yuv420: bool):
     """The pipeline call with the CLI's keywords: the (Y, U, V) planes when
     `output_yuv420`, else uint8 RGB frames; median-filtered unless
     --no_median_filter. With --profile_dir, the call runs under
-    `device_trace`."""
+    `device_trace`. In sharded mode every rank calls it and rank 0 alone
+    gets the video (None elsewhere), prints the steps and writes the trace."""
+    import torch.distributed as dist
+
     from ..utils.observability import device_trace
 
-    def progress(i, t):
-        print(f"[vexpress] denoise step {i + 1}/{args.num_inference_steps} (t={t})", flush=True)
+    mode = denoise_mode(args)
+    is_main = mode != "sharded" or dist.get_rank() == 0
 
-    with device_trace(args.profile_dir) as trace_path:
+    def progress(i, t):
+        if is_main:
+            print(f"[vexpress] denoise step {i + 1}/{args.num_inference_steps} (t={t})",
+                  flush=True)
+
+    with device_trace(args.profile_dir if is_main else "") as trace_path:
         video = pipeline(
             reference_image=inputs["reference_image"], kps_images=inputs["kps_images"],
             audio_waveform=inputs["audio"], width=args.image_width, height=args.image_height,
@@ -281,7 +307,7 @@ def generate(pipeline, inputs: Dict[str, Any], args, output_yuv420: bool):
             reference_attention_weight=args.reference_attention_weight,
             audio_attention_weight=args.audio_attention_weight,
             num_pad_audio_frames=args.num_pad_audio_frames, seed=args.seed,
-            window_group=args.window_group, save_memory=args.save_gpu_memory,
+            window_group=args.window_group, mode=mode, save_memory=args.save_gpu_memory,
             median_filter=not args.no_median_filter, output_yuv420=output_yuv420,
             output_uint8=not output_yuv420, progress_callback=progress)
     if trace_path:
@@ -301,6 +327,8 @@ def main(argv=None) -> None:
     # planes come back (1.5 bytes per pixel); else uint8 RGB and cv2
     yuv = native_available()
     video = generate(pipeline, inputs, args, output_yuv420=yuv)
+    if video is None:  # a sharded run's other ranks: rank 0 writes the video
+        return
     if yuv:
         num_frames = video[0].shape[0]
         save_video_yuv(*video, args.audio_path, args.output_path, inputs["fps"])

@@ -12,6 +12,16 @@ with `resume_from_checkpoint: latest`), per-module `.pth` exports (or the
 adapter as `lora-<step>.pth`), JSONL and MLflow FileStore metrics, and with
 `--profile_dir` a torch.profiler trace of steps 2-4.
 
+Data-parallel over processes, one a device: `--coordinator_address
+host:port --num_processes N --process_id r` on each process, or torchrun's
+environment (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE) with
+`--num_processes N`. train_bs is per process (the global batch is train_bs
+x N), each process reads its shard of the dataset, the learning rate scales
+with N where the config asks, gradients are averaged over the group, the
+optimizer state is ZeRO-2-sharded (vexpress_torch.parallel), and rank 0
+alone logs, writes the checkpoint and exports. A group that cannot form
+raises.
+
 `main` parses the flags and builds the dataset's batches; `train` does the
 rest from a config dict and any iterator of the dataset's numpy batches.
 """
@@ -43,7 +53,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="auto and cuda: the CUDA device (raises without one); cpu: the CPU")
     # multi-process launch (the accelerate --num_machines/--machine_rank analog)
     p.add_argument("--coordinator_address", type=str, default="",
-                   help="host:port of process 0 for multi-process training")
+                   help="host:port of process 0 for multi-process training (else "
+                        "torchrun's environment)")
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     return p.parse_args(argv)
@@ -73,11 +84,23 @@ def resolve_device(name: str) -> torch.device:
     return torch.device("cuda")
 
 
-def _check_ported(args) -> None:
-    if args.coordinator_address or args.num_processes > 0 or args.process_id >= 0:
-        raise NotImplementedError("--coordinator_address / --num_processes / --process_id: "
-                                  "multi-process training is not ported yet (ROADMAP Queue 1 "
-                                  "item 11)")
+def distributed_mesh(args):
+    """The data-parallel mesh: the process group the multi-process flags ask
+    for (formed here, once; a group that cannot form raises), or one that
+    the caller formed; None for a single process."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import create_mesh, initialize_distributed
+
+    if not dist.is_initialized() and (args.coordinator_address or args.num_processes > 0):
+        initialize_distributed(
+            coordinator_address=args.coordinator_address or None,
+            num_processes=args.num_processes or None,
+            process_id=args.process_id if args.process_id >= 0 else None,
+            backend="gloo" if args.device == "cpu" else None)
+        print(f"[vexpress] distributed: process {dist.get_rank()}/{dist.get_world_size()} "
+              f"({dist.get_backend()})")
+    return create_mesh() if dist.is_initialized() else None
 
 
 def parse_lora(cfg: Dict[str, Any]):
@@ -97,9 +120,9 @@ def parse_lora(cfg: Dict[str, Any]):
                       include=str(raw.get("include", "")))
 
 
-def train_config(cfg: Dict[str, Any]):
-    """The TrainConfig of a training config's dict, as cli/train.py routes it
-    (one process, so the learning-rate scaling sees a world size of 1)."""
+def train_config(cfg: Dict[str, Any], world_size: int = 1):
+    """The TrainConfig of a training config's dict, as cli/train.py routes it;
+    the learning-rate scaling sees `world_size` processes."""
     from ..train import TrainConfig
     from ..train.config import effective_learning_rate
 
@@ -109,7 +132,7 @@ def train_config(cfg: Dict[str, Any]):
         train_denoising_unet=mt["denoising_unet"], train_reference_net=mt["reference_net"],
         train_v_kps_guider=mt["v_kps_guider"], train_audio_projection=mt["audio_projection"],
         train_motion_module=mt["motion_module"],
-        learning_rate=effective_learning_rate(cfg, 1),
+        learning_rate=effective_learning_rate(cfg, world_size),
         adam_beta1=float(solver["adam_beta1"]), adam_beta2=float(solver["adam_beta2"]),
         adam_weight_decay=float(solver["adam_weight_decay"]),
         adam_epsilon=float(solver["adam_epsilon"]), max_grad_norm=float(solver["max_grad_norm"]),
@@ -146,25 +169,28 @@ def _optimizer_line(optimizer, lora_cfg, tcfg) -> str:
 def train(cfg: Dict[str, Any], args: argparse.Namespace,
           batches: Iterator[Dict[str, np.ndarray]]) -> Dict[str, Any]:
     """The training run of `cfg` on `args.device`, drawing numpy batches
-    from `batches`. Returns the pipeline, the final TrainState, the LoRA
-    tree (None for module training), the losses and each step's seconds."""
+    from `batches` (this process's shard when data-parallel). Returns the
+    pipeline, the final TrainState, the LoRA tree (None for module
+    training), the losses (the global batch's) and each step's seconds."""
     from ..diffusion.ddim import DDIMScheduler
     from ..io import apply_model_overrides, default_pipeline_models, load_pipeline
     from ..io.checkpoints import (export_modules, latest_checkpoint, restore_train_state,
                                   save_train_state)
     from ..io.torch_export import save_torch_checkpoint
+    from ..parallel.mesh import sync_params
     from ..train import TrainState, build_train_step, make_optimizer, stage_zero_init
     from ..train.config import check_config_keys, resolve_dtype, scheduler_kwargs, validate_config
     from ..train.lora import (build_lora_train_step, init_lora, lora_to_torch_state_dict,
                               make_lora_optimizer)
     from ..utils.observability import MetricsLogger, StepTimer, device_trace
 
-    _check_ported(args)
     validate_config(cfg)
     for w in check_config_keys(cfg):
         print(f"[vexpress] WARNING: {w}", file=sys.stderr)
     data, solver, mt = cfg["data"], cfg["solver"], cfg["module_training"]
     device = resolve_device(args.device)
+    mesh = distributed_mesh(args)
+    world, is_main = (1, True) if mesh is None else (mesh.size, mesh.rank == 0)
 
     dtype_name = resolve_dtype(cfg, args.dtype)
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
@@ -191,8 +217,10 @@ def train(cfg: Dict[str, Any], args: argparse.Namespace,
         audio_projection_path=cfg.get("audio_projection_path") or None,
         denoising_unet_state_dict_type=cfg.get("denoising_unet_state_dict_type", "new_attn"),
         device=device)
-    tcfg = train_config(cfg)
+    tcfg = train_config(cfg, world)
     comps = pipe.components()
+    if mesh is not None:
+        sync_params(comps, mesh)  # every rank starts from rank 0's weights
     seed = int(cfg.get("seed", 0))
 
     # optional LoRA fine-tuning (train/lora.py): adapters on the attention
@@ -203,7 +231,7 @@ def train(cfg: Dict[str, Any], args: argparse.Namespace,
     sched = DDIMScheduler(**scheduler_kwargs(cfg, cfg.get("enable_zero_snr", True)))
     if lora_cfg is not None:
         lora = init_lora(comps, lora_cfg, seed=seed)
-        optimizer = make_lora_optimizer(lora, tcfg)
+        optimizer = make_lora_optimizer(lora, tcfg, mesh)
         step_fn, _ = build_lora_train_step(pipe, tcfg, optimizer, lora_cfg, lora, scheduler=sched)
         n_pairs = sum(len(sub) for sub in lora.values())
         print(f"[vexpress] LoRA fine-tuning: {n_pairs} adapted projections, rank "
@@ -213,7 +241,7 @@ def train(cfg: Dict[str, Any], args: argparse.Namespace,
         # stage-start zero-init of the audio/motion output projections
         # (reference train.py:363-390; skipped for stage_2_resume)
         stage_zero_init(comps, cfg["train_stage"])
-        optimizer, _ = make_optimizer(comps, tcfg)
+        optimizer, _ = make_optimizer(comps, tcfg, mesh)
         step_fn, _ = build_train_step(pipe, tcfg, optimizer, scheduler=sched)
     print(_optimizer_line(optimizer, lora_cfg, tcfg))
     state = TrainState(comps, optimizer)
@@ -234,19 +262,21 @@ def train(cfg: Dict[str, Any], args: argparse.Namespace,
     # short (smoke) runs log every step
     log_every = 10 if max_steps - start_step > 20 else 1
     generator = torch.Generator().manual_seed(seed)  # the step's draws (sample_draws)
-    print(f"[vexpress] training {cfg['train_stage']} on {device}: bs={data['train_bs']}, "
-          f"frames={data['num_frames']}, max_steps={max_steps}")
+    print(f"[vexpress] training {cfg['train_stage']} on mesh {{'dp': {world}}} ({device}): "
+          f"bs={data['train_bs']}, frames={data['num_frames']}, max_steps={max_steps}")
     # JSONL + MLflow FileStore export (the reference logs train_loss to MLflow,
-    # train.py:657; browse with `mlflow ui --backend-store-uri <out>/mlruns`)
+    # train.py:657; browse with `mlflow ui --backend-store-uri <out>/mlruns`);
+    # rank 0's only, as the accelerate main-process convention has it
     mlog = MetricsLogger(out_dir, mlflow_dir=os.path.join(out_dir, "mlruns"),
-                         run_name=cfg.get("train_stage", "train"))
-    mlog.log_param("config", os.path.abspath(args.config))
+                         run_name=cfg.get("train_stage", "train")) if is_main else None
+    if mlog is not None:
+        mlog.log_param("config", os.path.abspath(args.config))
     timer = StepTimer()
     trace = contextlib.ExitStack()
     t0 = time.time()
     losses, window, step_s = [], [], []
     for step_i in range(start_step, max_steps):
-        if args.profile_dir and step_i == start_step + 1:
+        if args.profile_dir and is_main and step_i == start_step + 1:
             trace.enter_context(device_trace(args.profile_dir))
         batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in next(batches).items()}
         timer.data_done()
@@ -257,19 +287,23 @@ def train(cfg: Dict[str, Any], args: argparse.Namespace,
         losses.append(loss)
         window.append(loss)
         timer.step_done()
-        if args.profile_dir and step_i == start_step + 3:
+        if args.profile_dir and is_main and step_i == start_step + 3:
             trace.close()
             print(f"[vexpress] device trace (steps {start_step + 2}-{start_step + 4}) written "
                   f"to {args.profile_dir}")
         if (step_i + 1) % log_every == 0:
             dt = time.time() - t0
-            mlog.log(step_i + 1, {"train_loss": float(np.mean(window)),
-                                  "it_per_s": log_every / dt, **timer.report()})
-            print(f"[vexpress] step {step_i + 1}/{max_steps} loss {np.mean(window):.4f} "
-                  f"({log_every / dt:.2f} it/s)", flush=True)
+            report = timer.report()
+            if is_main:
+                mlog.log(step_i + 1, {"train_loss": float(np.mean(window)),
+                                      "it_per_s": log_every / dt, **report})
+                print(f"[vexpress] step {step_i + 1}/{max_steps} loss {np.mean(window):.4f} "
+                      f"({log_every / dt:.2f} it/s)", flush=True)
             window, t0 = [], time.time()
         if (step_i + 1) % ckpt_every == 0 or step_i + 1 == max_steps:
-            path = save_train_state(ckpt_dir, step_i + 1, state)
+            path = save_train_state(ckpt_dir, step_i + 1, state)  # every rank: collective
+            if not is_main:
+                continue
             if lora is not None:
                 # LoRA runs export the adapter only (peft layout; merged at
                 # load time with --lora_path of the inference CLI)
@@ -289,7 +323,8 @@ def train(cfg: Dict[str, Any], args: argparse.Namespace,
                                out_dir, step_i + 1)
             print(f"[vexpress] checkpoint saved: {path}")
     trace.close()
-    mlog.close()  # finalizes the MLflow run (status FINISHED + end_time)
+    if mlog is not None:
+        mlog.close()  # finalizes the MLflow run (status FINISHED + end_time)
     return dict(pipeline=pipe, state=state, lora=lora, lora_cfg=lora_cfg, losses=losses,
                 step_s=step_s, out_dir=out_dir, ckpt_dir=ckpt_dir)
 
@@ -298,15 +333,18 @@ def main(argv=None) -> None:
     from ..train.dataset import TalkingFaceVideoDataset
 
     args = parse_args(argv)
-    _check_ported(args)
     cfg = load_config(args.config)
     data = cfg["data"]
+    mesh = distributed_mesh(args)
     dataset = TalkingFaceVideoDataset(
         meta_paths=data["meta_paths"], image_size=(data["train_height"], data["train_width"]),
         flip_rate=data["flip_rate"], sample_rate=data["sample_rate"],
         num_frames=data["num_frames"], reference_margin=data["reference_margin"],
         num_padding_audio_frames=data["num_padding_audio_frames"], seed=cfg.get("seed", 0))
-    batches = dataset.batches(data["train_bs"])
+    batches = dataset.batches(data["train_bs"])  # this rank's shard of each epoch
+    if mesh is not None:
+        print(f"[vexpress] dataset shard {mesh.rank}/{mesh.size}, global batch "
+              f"{data['train_bs'] * mesh.size}")
     try:
         train(cfg, args, batches)
     finally:

@@ -12,7 +12,9 @@ name>`: the trained modules' parameters, or the LoRA factors under their
 parametrization names), the optimizer state (the clip's accumulation, the
 update count, each tensor's momenta: fp32, or the 8-bit Adam's int8 codes
 and fp32 scales) and the step. Frozen weights are not saved: a resume
-rebuilds them from the same configuration.
+rebuilds them from the same configuration. Data-parallel runs write the
+same file from rank 0 (the owners' moments gathered to it, the accumulation
+averaged over the group) and restore it at any world size.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ import shutil
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..parallel.mesh import all_reduce_mean
 from ..train.adam8bit import QTensor
 from .torch_export import filter_motion_module, save_torch_checkpoint
 
@@ -57,20 +61,36 @@ def _unpack(x, device):
 
 
 def _optimizer_state(optimizer, names: Dict[int, str]) -> dict:
-    inner = optimizer.inner
+    """The optimizer's state; under a mesh, collective: the accumulation is
+    the group's mean and rank 0 gathers every owner's moments (None
+    elsewhere)."""
+    inner, mesh = optimizer.inner, optimizer.mesh
+    acc = optimizer.acc
+    if acc is not None and mesh is not None:
+        acc = all_reduce_mean(acc, mesh)
+    moments = {names[id(p)]: {k: _pack(v) for k, v in inner.state[p].items()}
+               for p in optimizer.owned() if inner.state[p]}
+    if mesh is not None:
+        parts = [None] * mesh.size if mesh.rank == 0 else None
+        dist.gather_object(moments, parts, dst=0, group=mesh.group)
+        if mesh.rank != 0:
+            return None
+        moments = {n: m for part in parts for n, m in part.items()}
     return {
         "count": inner.count,
         "mini_step": optimizer.mini_step,
-        "acc": None if optimizer.acc is None else
-        {names[id(p)]: a.detach().cpu() for p, a in zip(optimizer.params, optimizer.acc)},
-        "state": {names[id(p)]: {k: _pack(v) for k, v in inner.state[p].items()}
-                  for p in optimizer.params if inner.state[p]},
+        "acc": None if acc is None else
+        {names[id(p)]: a.detach().cpu() for p, a in zip(optimizer.params, acc)},
+        "state": {names[id(p)]: moments[names[id(p)]] for p in optimizer.params
+                  if names[id(p)] in moments},
     }
 
 
 def save_train_state(ckpt_dir: str, step: int, state) -> str:
     """Write `state` (a TrainState) into `<ckpt_dir>/checkpoint-<step>`,
-    replacing a directory left at the same step by an earlier run."""
+    replacing a directory left at the same step by an earlier run. Under a
+    mesh (the optimizer's) every rank calls it, rank 0 writes the file one
+    process would write, and it returns on every rank once that is done."""
     path = pathlib.Path(ckpt_dir).resolve() / f"checkpoint-{step}"
     tensors = trainable_tensors(state.models)
     names = {id(p): n for n, p in tensors.items()}
@@ -78,12 +98,17 @@ def save_train_state(ckpt_dir: str, step: int, state) -> str:
     if missing:
         raise ValueError(f"optimizer parameters {missing[:5]} are not trainable tensors of "
                          "the models")
-    payload = {"params": {n: p.detach().cpu() for n, p in tensors.items()},
-               "opt_state": _optimizer_state(state.optimizer, names), "step": int(state.step)}
-    if path.exists():
-        shutil.rmtree(path)
-    path.mkdir(parents=True)
-    torch.save(payload, path / STATE_FILE)
+    opt_state = _optimizer_state(state.optimizer, names)
+    mesh = state.optimizer.mesh
+    if mesh is None or mesh.rank == 0:
+        payload = {"params": {n: p.detach().cpu() for n, p in tensors.items()},
+                   "opt_state": opt_state, "step": int(state.step)}
+        if path.exists():
+            shutil.rmtree(path)
+        path.mkdir(parents=True)
+        torch.save(payload, path / STATE_FILE)
+    if mesh is not None:
+        dist.barrier(group=mesh.group)
     return str(path)
 
 
@@ -103,7 +128,8 @@ def restore_train_state(path: str, state):
     """Load `checkpoint-<step>` into `state` (a TrainState built as the saved
     one was: the same models, trainable tensors and optimizer), in place:
     the tensors' values, the optimizer state on each tensor's device and the
-    step. Returns `state`."""
+    step. Under a mesh each rank keeps the state of the tensors it owns, so a
+    checkpoint restores at any world size. Returns `state`."""
     saved = torch.load(pathlib.Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
     tensors = trainable_tensors(state.models)
     if set(saved["params"]) != set(tensors):
@@ -119,7 +145,7 @@ def restore_train_state(path: str, state):
     opt.mini_step = ost["mini_step"]
     opt.acc = None if ost["acc"] is None else [ost["acc"][names[id(p)]].to(p.device)
                                                for p in opt.params]
-    for p in opt.params:
+    for p in opt.owned():
         inner.state[p] = {k: _unpack(v, p.device)
                           for k, v in ost["state"].get(names[id(p)], {}).items()}
     state.step = int(saved["step"])

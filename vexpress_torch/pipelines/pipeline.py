@@ -1,8 +1,8 @@
-"""VExpressPipeline: streamed inference. Counterpart of
-vexpress_tpu/pipelines/pipeline.py in `mode="streamed"`, on the exact
-unbucketed path the JAX package takes off the TPU: DDIM (eta 0 or above) or
-DPM-Solver++ (2M), `strength`, `save_memory`, YUV420 output. The fused and
-sharded modes, `piecewise` and `shape_bucketing` are not ported.
+"""VExpressPipeline: streamed and window-parallel inference. Counterpart of
+vexpress_tpu/pipelines/pipeline.py in `mode="streamed"` and `mode="sharded"`,
+on the exact unbucketed path the JAX package takes off the TPU: DDIM (eta 0
+or above) or DPM-Solver++ (2M), `strength`, `save_memory`, YUV420 output.
+The fused mode, `piecewise` and `shape_bucketing` are not ported.
 
 The window set is a static [N, context_frames] index table computed once
 (the reference builds its context queue with step=0 for every denoise step).
@@ -11,7 +11,10 @@ Each denoise step gathers one window group, runs the UNet under CFG
 zero-KV attention shortcut), scatter-adds the 1/count-weighted predictions
 into an fp32 accumulator and applies one sampler step to all frames. Every
 window reads pre-step latents and the update is elementwise, so this equals
-the reference's sequential per-window loop.
+the reference's sequential per-window loop. `mode="sharded"` spreads the
+window table over the ranks of a process group (vexpress_torch.parallel):
+each rank blends its rows, the accumulators are summed over the group, and
+every rank applies the same sampler step to the same latents.
 """
 
 from __future__ import annotations
@@ -284,15 +287,27 @@ class VExpressPipeline:
 
     def _denoise_streamed(self, latents, timesteps, windows, inv_counts, cond,
                           num_inference_steps, guidance_scale, window_group, sampler="ddim",
-                          eta=0.0, generator=None, kps_raw_host=None, progress_callback=None):
+                          eta=0.0, generator=None, kps_raw_host=None, progress_callback=None,
+                          mesh=None):
         """The denoise loop. `cond` = (kps_feat, audio_tok, ref_feats,
         ref_scale, audio_scale); with `kps_raw_host` (save_memory) kps_feat is
         None and each window group's guider features are computed from its
         raw frames when the group runs: those frames are gathered on the host
         and kept on the device while the window table's frames fit
         VEXPRESS_SAVEMEM_DEV_CACHE_MB (2048 by default), else uploaded at
-        every step."""
-        win_idx, win_w = _window_tables(windows, inv_counts, window_group)
+        every step. With a `mesh` this rank runs its rows of the padded
+        window table (so save_memory computes the guider features of its own
+        groups only) and the blend is summed over the group."""
+        if mesh is None:
+            win_idx, win_w = _window_tables(windows, inv_counts, window_group)
+            blend = blend_windows
+        else:
+            from ..parallel.mesh import blend_sharded, local_window_tables
+
+            win_idx, win_w = local_window_tables(windows, inv_counts, mesh, window_group)
+
+            def blend(*a):
+                return blend_sharded(*a, mesh)
         kps_feat, *rest = cond
         if kps_raw_host is None:
             def cond_of_group(_gi):
@@ -320,7 +335,7 @@ class VExpressPipeline:
         prev_x0, has_prev = torch.zeros_like(latents), False
         for i, t in enumerate(timesteps):
             t = int(t)
-            acc = blend_windows(predict, latents, t, cond_of_group, win_idx, win_w)
+            acc = blend(predict, latents, t, cond_of_group, win_idx, win_w)
             if sampler == "dpmpp_2m":
                 latents, prev_x0, has_prev = dpm_step(acc, idx0 + i, latents, prev_x0, has_prev)
             else:
@@ -363,7 +378,8 @@ class VExpressPipeline:
         num_pad_audio_frames: int = 2,
         seed: int = 42,
         window_group: int = 1,
-        mode: str = "streamed",
+        mode: str = "streamed",  # or "sharded": the windows spread over `mesh`'s ranks
+        mesh=None,  # vexpress_torch.parallel.Mesh; sharded mode's default: create_mesh()
         save_memory: bool = False,
         return_latents: bool = False,
         median_filter: bool = False,
@@ -383,9 +399,20 @@ class VExpressPipeline:
         kps frames on the host, runs the guider per window group and moves
         the reference net, wav2vec2 and audio projection to their host copies
         once conditioning is done (`last_released_cond_mib`); the next call
-        brings them back."""
-        if mode != "streamed":
-            raise NotImplementedError(f"mode={mode!r}: only 'streamed' is ported")
+        brings them back.
+
+        `mode="sharded"`: every rank of the mesh's group makes this call with
+        the same arguments; each computes the conditioning, runs its share of
+        the windows and keeps latents equal to every other rank's. Rank 0
+        returns the video; the others return None (the latents as well under
+        `return_latents`)."""
+        if mode not in ("streamed", "sharded"):
+            raise NotImplementedError(f"mode={mode!r}: only 'streamed' and 'sharded' are "
+                                      "ported (the fused mode is on ROADMAP's Not-to-port list)")
+        if mode == "sharded" and mesh is None:
+            from ..parallel.mesh import create_mesh
+
+            mesh = create_mesh()
         if sampler not in ("ddim", "dpmpp_2m"):
             raise ValueError(f"unknown sampler {sampler!r}; choose 'ddim' or 'dpmpp_2m'")
         if sampler == "dpmpp_2m" and eta != 0.0:
@@ -457,10 +484,12 @@ class VExpressPipeline:
                 (kps_feat, audio_tok, ref_feats, ref_scale, audio_scale),
                 num_inference_steps, guidance_scale, window_group, sampler=sampler, eta=eta,
                 generator=gen, kps_raw_host=kps_images if save_memory else None,
-                progress_callback=progress_callback)
+                progress_callback=progress_callback, mesh=mesh if mode == "sharded" else None)
             t0 = mark("denoise", t0)
             if return_latents:
                 return latents.cpu().numpy()
+            if mode == "sharded" and mesh.rank != 0:
+                return None
             video = self.decode_latents(latents, median_filter=median_filter,
                                         as_uint8=output_uint8, as_yuv420=output_yuv420)
             mark("decode", t0)

@@ -364,16 +364,21 @@ def load_and_merge_lora(params: Dict[str, Dict[str, torch.Tensor]], path: str,
 # ------------------------------------------------------------ trainer
 
 
-def make_lora_optimizer(lora: LoraTree, tcfg):
+def make_lora_optimizer(lora: LoraTree, tcfg, mesh=None):
     """What cli/train.py builds for LoRA runs: global-norm clipping, then
     AdamW over the factors with the config's solver values and learning-rate
-    schedule (8-bit state would save nothing on this little state)."""
-    from .train_step import AdamW, TrainOptimizer, make_lr_schedule
+    schedule (8-bit state would save nothing on this little state). With a
+    `mesh`, the factors' gradients are averaged over the group and their
+    AdamW state is ZeRO-2-sharded (`TrainOptimizer`)."""
+    from .train_step import AdamW, make_lr_schedule, sharded_optimizer
 
-    params = lora_parameters(lora)
-    inner = AdamW(params, make_lr_schedule(tcfg), betas=(tcfg.adam_beta1, tcfg.adam_beta2),
-                  eps=tcfg.adam_epsilon, weight_decay=tcfg.adam_weight_decay)
-    return TrainOptimizer(params, inner, tcfg.max_grad_norm)
+    named = {f"{mod}.{name}.{ab}": getattr(f, ab).weight for mod, sub in lora.items()
+             for name, f in sub.items() for ab in ("lora_A", "lora_B")}
+    lr, betas = make_lr_schedule(tcfg), (tcfg.adam_beta1, tcfg.adam_beta2)
+    return sharded_optimizer(
+        named, lambda groups: AdamW(groups, lr, betas=betas, eps=tcfg.adam_epsilon,
+                                    weight_decay=tcfg.adam_weight_decay),
+        tcfg.max_grad_norm, mesh=mesh)
 
 
 def build_lora_train_step(pipeline, tcfg, optimizer, lora_cfg: LoraConfig, lora: LoraTree,

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from ..diffusion.ddim import DDIMScheduler
+from ..parallel.mesh import all_reduce_mean, broadcast_owned, shard_opt_state_zero2
 from ..pipelines.pipeline import LATENT_SCALE
 from .adam8bit import Adam8bit
 
@@ -244,16 +245,26 @@ class TrainOptimizer:
     (g + n * acc) / (n + 1), in fp32 and updates only at every k-th call;
     returns whether it updated. The clipped gradient, g / |g| * max_norm when
     the global norm |g| (accumulated in fp32) is not below max_norm, is left in
-    .grad in the parameter's dtype for the inner optimizer."""
+    .grad in the parameter's dtype for the inner optimizer.
+
+    Data-parallel (`mesh` given): at an update the gradients (the running
+    mean when accumulating, which is linear, so once) are averaged over the
+    group (`all_reduce_mean`), every rank clips alike, `inner` steps the
+    tensors this rank owns (`owners[i]` is the rank of `params[i]`;
+    `make_optimizer` builds `inner` over those only) and each owner
+    broadcasts its updated tensors."""
 
     def __init__(self, params: List[torch.Tensor], inner: torch.optim.Optimizer,
-                 max_grad_norm: float, accumulation_steps: int = 1):
+                 max_grad_norm: float, accumulation_steps: int = 1, mesh=None,
+                 owners: Optional[List[int]] = None):
         self.params = params
         self.inner = inner
         self.max_grad_norm = max_grad_norm
         self.k = accumulation_steps
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
+        self.mesh = mesh
+        self.owners = owners if owners is not None else [0] * len(params)
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -268,43 +279,71 @@ class TrainOptimizer:
                 return False
             grads = [a.to(p.dtype) for a, p in zip(self.acc, self.params)]
             self.acc = None
+        if self.mesh is not None:
+            grads = all_reduce_mean(grads, self.mesh)
         norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
         if not bool(norm < self.max_grad_norm):
             grads = [(g / norm.to(g.dtype)) * self.max_grad_norm for g in grads]
         for p, g in zip(self.params, grads):
             p.grad = g
         self.inner.step()
+        if self.mesh is not None:
+            broadcast_owned(self.params, self.owners, self.mesh)
         return True
+
+    def owned(self) -> List[torch.Tensor]:
+        """The parameters whose optimizer state this rank keeps."""
+        rank = 0 if self.mesh is None else self.mesh.rank
+        return [p for p, r in zip(self.params, self.owners) if r == rank]
 
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
 
 
-def make_optimizer(models: Dict[str, nn.Module], cfg: TrainConfig
+def sharded_optimizer(named: Dict[str, torch.Tensor], make_inner, max_grad_norm: float,
+                      accumulation_steps: int = 1, mesh=None) -> TrainOptimizer:
+    """A TrainOptimizer over the tensors of `named`, its inner optimizer
+    `make_inner(param_groups)` built over the tensors this rank owns
+    (`shard_opt_state_zero2`; all of them without a mesh)."""
+    params = list(named.values())
+    owners = None
+    if mesh is not None:
+        by_name = shard_opt_state_zero2(named, mesh)
+        owners = [by_name[n] for n in named]
+    opt = TrainOptimizer(params, None, max_grad_norm, accumulation_steps, mesh, owners)
+    opt.inner = make_inner([{"params": opt.owned()}])
+    return opt
+
+
+def make_optimizer(models: Dict[str, nn.Module], cfg: TrainConfig, mesh=None
                    ) -> Tuple[TrainOptimizer, Dict[str, Dict[str, bool]]]:
     """Global-norm clipping, then AdamW or the 8-bit Adam, on the trainable
     parameters only (train.py:464-489 + accelerate grad-accum). Sets
     requires_grad on every parameter of `models` from the stage's mask, so
-    frozen parameters get no gradient and no optimizer state."""
+    frozen parameters get no gradient and no optimizer state. With a `mesh`,
+    the optimizer state is ZeRO-2-sharded (`TrainOptimizer`)."""
     mask = trainable_mask(models, cfg)
-    params = []
+    named = {}
     for mod, m in models.items():
         for name, p in m.named_parameters():
             p.requires_grad_(mask[mod][name])
             if mask[mod][name]:
-                params.append(p)
+                named[f"{mod}.{name}"] = p
     lr = make_lr_schedule(cfg)
     betas = (cfg.adam_beta1, cfg.adam_beta2)
     reduce = cfg.reduce_optimizer_memory
     if reduce is True or reduce == "8bit":
-        inner = Adam8bit(params, lr, betas=betas, eps=cfg.adam_epsilon,
-                         weight_decay=cfg.adam_weight_decay)
+        def make_inner(groups):
+            return Adam8bit(groups, lr, betas=betas, eps=cfg.adam_epsilon,
+                            weight_decay=cfg.adam_weight_decay)
     else:
-        inner = AdamW(params, lr, betas=betas, eps=cfg.adam_epsilon,
-                      weight_decay=cfg.adam_weight_decay,
-                      mu_dtype=torch.bfloat16 if reduce == "bf16" else torch.float32)
-    return TrainOptimizer(params, inner, cfg.max_grad_norm, cfg.gradient_accumulation_steps), mask
+        def make_inner(groups):
+            return AdamW(groups, lr, betas=betas, eps=cfg.adam_epsilon,
+                         weight_decay=cfg.adam_weight_decay,
+                         mu_dtype=torch.bfloat16 if reduce == "bf16" else torch.float32)
+    return sharded_optimizer(named, make_inner, cfg.max_grad_norm,
+                             cfg.gradient_accumulation_steps, mesh), mask
 
 
 def sample_draws(generator: torch.Generator, cfg: TrainConfig, batch_size: int, frames: int,
@@ -347,7 +386,11 @@ def build_train_step(pipeline, cfg: TrainConfig, optimizer: TrainOptimizer,
 
     loss_fn(models, batch, draws) -> scalar loss; train_step(state, batch,
     generator) -> (state, {"loss": float tensor}) draws with `sample_draws`,
-    back-propagates and steps the optimizer.
+    back-propagates and steps the optimizer. Data-parallel (the optimizer's
+    `mesh`): `batch` is this rank's b rows of a global batch of b * world,
+    the draws are the global batch's (the same generator state on every
+    rank) cut to this rank's rows, and the loss returned is the global
+    mean.
 
     batch (the dataset's tensors, on the models' device):
       target_images: (B, F, H, W, 3) in [-1, 1]
@@ -426,17 +469,29 @@ def build_train_step(pipeline, cfg: TrainConfig, optimizer: TrainOptimizer,
             loss = loss.mean(dim=tuple(range(1, loss.dim()))) * weights
         return loss.mean()
 
+    mesh = optimizer.mesh
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         target = batch["target_images"]
         b, f, hh, ww = target.shape[:4]
-        draws = sample_draws(generator, cfg, b, f, (hh // 8, ww // 8),
+        world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        # the draws of the global batch, from a generator in the same state
+        # on every rank; this rank's rows (uncond is one for the whole batch)
+        draws = sample_draws(generator, cfg, b * world, f, (hh // 8, ww // 8),
                              sched.config.num_train_timesteps, device=target.device)
+        draws = {k: v if v.dim() == 0 else
+                 v[rank * b * (f if k == "vae_target" else 1):
+                   (rank + 1) * b * (f if k == "vae_target" else 1)]
+                 for k, v in draws.items()}
         loss = loss_fn(state.models, batch, draws)
         loss.backward()
         state.optimizer.step()
         state.optimizer.zero_grad()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        loss = loss.detach()
+        if mesh is not None:  # the global batch's mean
+            loss = all_reduce_mean([loss], mesh)[0]
+        return state, {"loss": loss}
 
     return train_step, loss_fn
