@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   kernel        each kernel at the main paths' shapes against its plain
                 version: K1's forward and K2 (VEXPRESS_FLASH_LITE's bf16-exp
                 forward, also against exact fp32 attention) at the inference
-                shapes; at the training shapes of stage 2 and stage 3 K1
+                shapes, window_group 1 and 2; at the training shapes of stage 2 and stage 3 K1
                 with its gradient (forward with log-sum-exp, dk/dv and dq
                 kernels) through FlashAttention, with SDPA's backward alone
                 and the di reduction timed beside them and stage 3's
@@ -57,6 +57,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                 --save_gpu_memory, K2 on, median filter and YUV420 output, on
                 44 synthetic 512x512 frames; then a 1-step call without
                 save_memory brings the released modules back
+  tools         each measurement tool of vexpress_torch/tools/ (profilers, FLOP
+                count, decode, save_memory and the long-clip sampler, the op and
+                block benches, the convergence demo, psnr) through its main() at
+                a reduced size: fields finite, no out-of-memory row, no plain
+                flash version, K1 and K2 only at the kernel phase's shapes, and
+                the card's FLOP count equal to the one from shapes alone
   dist_parity   the data-parallel path (vexpress_torch.parallel) on parity's
                 reduced fp32 models, 2 spawned ranks sharing the card over gloo:
                 the pipeline in mode="sharded" against the same call streamed
@@ -72,7 +78,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 window a rank; rank 0's video against cli_full's (PSNR > 45
                 dB), the latents bitwise equal across ranks, each rank's K2
                 launches as reckoned
-  train_dp      the training CLI's train() at STAGE_2 on 2 ranks sharing the
+  train_dp      the training CLI's train() at stage_2() on 2 ranks sharing the
                 card, batch 1 a rank, 3 steps, ZeRO-2-sharded 8-bit Adam, the
                 checkpoint and exports at the last: losses finite, parameters
                 bitwise equal across ranks after every step, each rank's
@@ -121,6 +127,15 @@ K1_SHAPES = [
     ("attn1_5@32x32 grouped", 1, 24 * 1024, 1024, 640, 8),
     ("reference-net attn1@64x64", 1, 4096, 4096, 320, 8),
     ("reference-net attn1@32x32", 1, 1024, 1024, 640, 8),
+]
+# the same at window_group 2 (the inference CLI's --window_group 2; the tools
+# phase's bench_savemem runs it): two windows a UNet call, attn1 at twice the
+# batch, attn1_5's queries over both windows' frames
+K1_G2_SHAPES = [
+    ("g2 attn1@64x64", 96, 4096, 4096, 320, 8),
+    ("g2 attn1_5@64x64 grouped", 1, 48 * 4096, 4096, 320, 8),
+    ("g2 attn1@32x32", 96, 1024, 1024, 640, 8),
+    ("g2 attn1_5@32x32 grouped", 1, 48 * 1024, 1024, 640, 8),
 ]
 # checks off the main path: fp32 (the parity phase's type) and D=160
 K1_EXTRA = [
@@ -371,7 +386,8 @@ def kernel_phase(torch) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, lite_rows = [], []
-    cases = [(n, b, lq, lk, i, h, "bfloat16") for n, b, lq, lk, i, h in K1_SHAPES] + K1_EXTRA
+    cases = ([(n, b, lq, lk, i, h, "bfloat16")
+              for n, b, lq, lk, i, h in K1_SHAPES + K1_G2_SHAPES] + K1_EXTRA)
     for name, b, lq, lk, inner, heads, dtype_name in cases:
         dtype = getattr(torch, dtype_name)
         d = inner // heads
@@ -1120,21 +1136,17 @@ def _shape_key(row) -> tuple:
     return (b, lq, lk, inner // heads)
 
 
-# configs/stage_2.yaml's training values, written out (the card's machine has
-# no yaml parser); routed into a TrainConfig by the training CLI's train_config
-STAGE_2 = {
-    "train_stage": "stage_2",
-    "data": {"train_bs": 1, "train_width": 512, "train_height": 512, "num_frames": TRAIN_FRAMES,
-             "lip_loss_weight": 1, "reference_drop_rate": 0, "kps_drop_rate": 0},
-    "module_training": {"denoising_unet": False, "reference_net": False, "v_kps_guider": False,
-                        "audio_projection": True, "motion_module": True},
-    "solver": {"gradient_accumulation_steps": 1, "reference_net_gradient_checkpointing": False,
-               "denoising_unet_gradient_checkpointing": True, "max_train_steps": 300000,
-               "max_grad_norm": 1.0, "learning_rate": 1.0e-6, "lr_warmup_steps": 1,
-               "lr_scheduler": "constant", "adam_beta1": 0.9, "adam_beta2": 0.999,
-               "adam_weight_decay": 1.0e-2, "adam_epsilon": 1.0e-8, "use_8bit_adam": True},
-    "uncond_ratio": 0.1, "noise_offset": 0.05, "snr_gamma": 5.0, "enable_zero_snr": True,
-}
+def stage_2() -> dict:
+    """configs/stage_2.yaml's training values (vexpress_torch.train.recipe) at
+    TRAIN_FRAMES frames, routed into a TrainConfig by the training CLI's
+    train_config."""
+    from vexpress_torch.train.recipe import stage_config
+
+    cfg = stage_config("stage_2")
+    cfg["data"]["num_frames"] = TRAIN_FRAMES
+    return cfg
+
+
 TRAIN_STEPS = 5
 
 
@@ -1177,17 +1189,10 @@ def expected_bwd_launches(cfg, unet_cfg, h: int, w: int, frames: int, batch: int
 
 
 def synthetic_train_batch(torch, size: int, frames: int, audio_dim: int, seed: int, device):
-    """A seeded batch of the dataset's shapes (batch 1): target frames and
-    reference image in [-1, 1], kps frames in [0, 1], wav2vec2 window
-    embeddings (F, 10, audio_dim), lip masks at latent resolution."""
-    g = torch.Generator().manual_seed(seed)
-    lat = size // 8
-    batch = dict(target_images=torch.rand((1, frames, size, size, 3), generator=g) * 2 - 1,
-                 reference_image=torch.rand((1, size, size, 3), generator=g) * 2 - 1,
-                 kps_images=torch.rand((1, frames, size, size, 3), generator=g),
-                 audio_frame_embeddings=torch.randn((1, frames, 10, audio_dim), generator=g),
-                 lip_masks=torch.rand((1, frames, lat, lat), generator=g))
-    return {k: v.to(device) for k, v in batch.items()}
+    """vexpress_torch.train.recipe.synthetic_train_batch at batch 1."""
+    from vexpress_torch.train.recipe import synthetic_train_batch as batch
+
+    return batch(size, frames, audio_dim, seed, device)
 
 
 TRAIN_PARITY_SIZE, TRAIN_PARITY_FRAMES = 256, 4
@@ -1392,87 +1397,37 @@ def lora_parity_phase(torch) -> dict:
                 step_losses=step_losses, launches=card_launches, cli=cli)
 
 
-class StepSplit:
-    """CUDA-event split of each training step into conditioning, UNet
-    forward, backward and optimizer: `begin()` marks a step's start, hooks
-    on the denoising UNet and a wrapper around the optimizer's step mark the
-    rest; `remove()` takes them off again."""
-
-    def __init__(self, torch, unet, optimizer):
-        self.torch, self.steps, self.optimizer = torch, [], optimizer
-        self.hooks = [unet.register_forward_pre_hook(lambda *_: self.mark("unet_start")),
-                      unet.register_forward_hook(lambda *_: self.mark("unet_end"))]
-        self.inner_step = optimizer.step
-
-        def timed_step():
-            self.mark("opt_start")
-            updated = self.inner_step()
-            self.mark("opt_end")
-            return updated
-
-        optimizer.step = timed_step
-
-    def begin(self):
-        self.steps.append({})
-        self.mark("start")
-
-    def mark(self, name):
-        self.steps[-1][name] = self.torch.cuda.Event(enable_timing=True)
-        self.steps[-1][name].record()
-
-    def splits(self) -> list:
-        """Seconds of each part of each step (call after a synchronize)."""
-        return [dict(conditioning=e["start"].elapsed_time(e["unet_start"]) / 1e3,
-                     unet_forward=e["unet_start"].elapsed_time(e["unet_end"]) / 1e3,
-                     backward=e["unet_end"].elapsed_time(e["opt_start"]) / 1e3,
-                     optimizer=e["opt_start"].elapsed_time(e["opt_end"]) / 1e3)
-                for e in self.steps]
-
-    def remove(self):
-        for h in self.hooks:
-            h.remove()
-        self.optimizer.step = self.inner_step
-
-
 def train_full_phase(torch) -> dict:
     """Stage 2 at full SD1.5 width: configs/stage_2.yaml's values, bf16 (the
     resolve_dtype(cfg, "bf16") route), seeded random weights, stage_zero_init,
     the denoising UNet checkpointed per block, 20 frames at 512x512, batch 1,
     TRAIN_STEPS steps of train_step. Times each step and splits it with CUDA
     events (conditioning, UNet forward, backward, optimizer)."""
-    import dataclasses
-
-    from vexpress_torch.io import default_pipeline_models, init_pipeline_random_
+    from vexpress_torch.io import default_pipeline_models
     from vexpress_torch.ops import launches
-    from vexpress_torch.pipelines import VExpressPipeline
-    from vexpress_torch.train import TrainState, build_train_step, make_optimizer, stage_zero_init
-    from vexpress_torch.cli.train import train_config
-    from vexpress_torch.train.config import resolve_dtype, validate_config
+    from vexpress_torch.train import TrainState
+    from vexpress_torch.train.config import resolve_dtype
+    from vexpress_torch.train.recipe import build_stage_step
+    from vexpress_torch.train.step_split import StepSplit
 
-    validate_config(STAGE_2)
-    cfg = train_config(STAGE_2)
-    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[resolve_dtype(STAGE_2, "bf16")]
+    stage = stage_2()
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[resolve_dtype(stage, "bf16")]
     models = default_pipeline_models(dtype)
-    checkpointing = STAGE_2["solver"]["denoising_unet_gradient_checkpointing"]
-    models = dataclasses.replace(models, unet_config=dataclasses.replace(
-        models.unet_config, gradient_checkpointing=checkpointing))
-    size, frames = STAGE_2["data"]["train_width"], cfg.num_frames
+    size, frames = stage["data"]["train_width"], stage["data"]["num_frames"]
     t0 = time.perf_counter()
-    pipe = init_pipeline_random_(VExpressPipeline(models, device="cuda"), seed=0)
-    comps = stage_zero_init(pipe.components(), cfg.train_stage)
-    optimizer, mask = make_optimizer(comps, cfg)
-    step_fn, _ = build_train_step(pipe, cfg, optimizer)
-    batch = synthetic_train_batch(torch, size, frames, 768, seed=3, device="cuda")
+    run = build_stage_step(models, "stage_2", frames, size, "cuda")
+    cfg, comps, optimizer, mask, step_fn, batch = (run.config, run.models, run.optimizer,
+                                                   run.mask, run.step_fn, run.batch)
+    checkpointing = run.unet_config.gradient_checkpointing
     frozen = {f"{m}.{n}": p.detach().cpu() for m, mod in comps.items()
               for n, p in mod.named_parameters() if not mask[m][n]}
     zeroed = {f"denoising_unet.{n}": p for n, p in comps["denoising_unet"].named_parameters()
               if ".attn2.to_out.0." in "." + n or ".temporal_transformer.proj_out." in "." + n}
-    n_train = sum(p.numel() for m, mod in comps.items() for n, p in mod.named_parameters()
-                  if mask[m][n])
+    n_train = run.trainable_params
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    split = StepSplit(torch, comps["denoising_unet"], optimizer)
+    split = StepSplit(comps["denoising_unet"], optimizer)
     state, gen = TrainState(comps, optimizer), torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     launches.reset()
@@ -1548,7 +1503,7 @@ def _bf16_ulps(a, b):
 
 
 def train_cli_phase(torch) -> dict:
-    """The training CLI's train() at full SD1.5 width: STAGE_2 plus a lora
+    """The training CLI's train() at full SD1.5 width: stage_2() plus a lora
     section (rank 8, alpha 8, the denoising UNet's default targets), bf16,
     seeded random base weights (the loader's, as train_full's), 20 frames at
     512x512, batch 1 from synthetic_train_batch, TRAIN_CLI_STEPS steps with a
@@ -1561,10 +1516,12 @@ def train_cli_phase(torch) -> dict:
     from vexpress_torch.ops import launches
     from vexpress_torch.train import lora as tl
     from vexpress_torch.train.lora import base_named_parameters, load_and_merge_lora
+    from vexpress_torch.train.step_split import StepSplit
 
-    size, frames = STAGE_2["data"]["train_width"], STAGE_2["data"]["num_frames"]
+    stage = stage_2()
+    size, frames = stage["data"]["train_width"], stage["data"]["num_frames"]
     with tempfile.TemporaryDirectory() as out_dir:
-        cfg = dict(json.loads(json.dumps(STAGE_2)), lora=dict(TRAIN_CLI_LORA),
+        cfg = dict(stage, lora=dict(TRAIN_CLI_LORA),
                    checkpointing_steps=2, output_dir=out_dir, seed=0)
         cfg_path = pathlib.Path(out_dir) / "stage_2_lora.json"
         cfg_path.write_text(json.dumps(cfg))
@@ -1582,7 +1539,7 @@ def train_cli_phase(torch) -> dict:
 
         def timed_build(pipeline, tcfg, optimizer, *a, **kw):
             step_fn, loss_fn = real_build(pipeline, tcfg, optimizer, *a, **kw)
-            split.append(StepSplit(torch, pipeline.denoising_unet, optimizer))
+            split.append(StepSplit(pipeline.denoising_unet, optimizer))
 
             def timed_step(*step_args):
                 split[0].begin()
@@ -1797,6 +1754,106 @@ def cli_full_phase(torch) -> dict:
                 peak_by_stretch_gib=peaks, resident_before_gib=resident_gib,
                 released_mib=released, second_call_s=again_s, steps=CLI_STEPS, frames=frames,
                 windows=n_windows, y_std=float(y.std()))
+
+
+TOOLS_CLIP = ["--frames", str(FULL_FRAMES), "--steps", "2"]
+# each measurement tool at a reduced size: (tool, argv, K2 on)
+TOOLS_RUNS = [
+    ("unet_step_flops", [], False),
+    ("profile_step", ["--reps", "2"], False),
+    ("bench_window_step", ["--frames", str(FULL_FRAMES), "--reps", "2"], False),
+    ("bench_decode", ["--chunks", "4", "8", "--reps", "1"], False),
+    ("microbench_ops", ["--reps", "2"], False),
+    ("bench_blocks", ["--reps", "1"], False),
+    ("bench_perf_table", ["--reps", "1"], False),
+    ("profile_train_step", ["--reps", "1"], False),
+    ("bench_savemem", TOOLS_CLIP, True),  # its window_group 2 row: K1_G2_SHAPES
+    ("bench_savemem_overhead", TOOLS_CLIP, True),
+    ("bench_long_sampler", TOOLS_CLIP, True),
+    ("train_convergence_demo", ["--steps", "4", "--stages", "stage_2"], False),
+]
+
+
+def _tool_numbers(rec):
+    if isinstance(rec, dict):
+        for v in rec.values():
+            yield from _tool_numbers(v)
+    elif isinstance(rec, (list, tuple)):
+        for v in rec:
+            yield from _tool_numbers(v)
+    elif isinstance(rec, (int, float)) and not isinstance(rec, bool):
+        yield rec
+
+
+def tools_phase(torch) -> dict:
+    """Each measurement tool of vexpress_torch/tools/ through its main() on
+    the card at a reduced size (TOOLS_RUNS; the clip tools under K2, as
+    cli_full), and psnr on two stacks. Fails on a non-finite field, an
+    out-of-memory row, a non-finite UNet or decoder output, a plain flash
+    version run, K1 or K2 at a shape the kernel phase does not check, or a
+    card FLOP count that differs from the one from shapes alone."""
+    import importlib
+
+    import numpy as np
+    from vexpress_torch.ops import flash, launches
+    from vexpress_torch.tools import psnr, unet_step_flops
+
+    # shapes alone first: the fake tensors take the plain attention path
+    meta = unet_step_flops.main(["--device", "meta"])
+    launches.reset()
+    out, wall = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv, lite in TOOLS_RUNS:
+            if name == "train_convergence_demo":
+                argv = argv + ["--out", str(pathlib.Path(tmp) / "convergence")]
+            tool = importlib.import_module(f"vexpress_torch.tools.{name}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            flash.FLASH_LITE = lite
+            t0 = time.perf_counter()
+            try:
+                out[name] = tool.main(argv)
+            finally:
+                flash.FLASH_LITE = False
+            wall[name] = time.perf_counter() - t0
+        a = np.random.default_rng(0).uniform(size=(4, 64, 64, 3)).astype(np.float32)
+        np.save(pathlib.Path(tmp) / "a.npy", a)
+        np.save(pathlib.Path(tmp) / "b.npy", np.clip(a + 0.01, 0, 1))
+        stacks = [str(pathlib.Path(tmp) / f) for f in ("a.npy", "b.npy")]
+        out["psnr"] = psnr.main(stacks)
+    counts = {k: n for k, n in launches.counts.items() if n}
+    ran = {k for k in launches.shapes if k[0] in ("flash_fwd", "flash_lite_fwd")}
+    checked = {_shape_key(row) for row in K1_SHAPES + K1_G2_SHAPES + TRAIN_K1_SHAPES}
+    bad = [k for k in out if not all(math.isfinite(x) for x in _tool_numbers(out[k]))]
+    ooms = [r["chunk"] for r in out["bench_decode"] if r["oom"]]
+    nonfinite = [k for k, rec in out.items() for r in (rec if isinstance(rec, list) else [rec])
+                 if isinstance(r, dict) and r.get("nonfinite")]
+    card_flops, meta_flops = (out["unet_step_flops"]["window_step_gflops"],
+                              meta["window_step_gflops"])
+    log(f"[tools] wall by tool {json.dumps(wall)}; launches {counts}; K1/K2 shapes "
+        f"{sorted(ran)}; window step {card_flops:.1f} GFLOP on the card, {meta_flops:.1f} from "
+        f"shapes; profile_train_step {out['profile_train_step']['median_step_s']:.3f} s/step, "
+        f"bench_window_step {out['bench_window_step']['unet_call_ms']:.1f} ms a UNet call")
+    if bad:
+        raise PhaseError(f"non-finite fields out of {bad}")
+    if ooms:
+        raise PhaseError(f"bench_decode ran out of memory at chunks {ooms}")
+    if nonfinite:
+        raise PhaseError(f"non-finite UNet or decoder outputs in {nonfinite}")
+    plain = {k: n for k, n in counts.items() if k.endswith("_reference")}
+    if plain:
+        raise PhaseError(f"a plain flash version ran on the card: {plain}")
+    if not {(b, lq, lk, d) for _, b, lq, lk, d in ran} <= checked or not ran:
+        raise PhaseError(f"K1/K2 ran at shapes {sorted(ran)}; the kernel phase checks "
+                         f"{sorted(checked)}")
+    if card_flops != meta_flops:
+        raise PhaseError(f"the card's FLOP count {card_flops} differs from the shapes' "
+                         f"{meta_flops}")
+    return dict(wall_s=wall, launches=counts, window_step_gflops=card_flops,
+                profile_train_step={k: out["profile_train_step"][k] for k in
+                                    ("median_step_s", "split_s", "train_step_gflop", "mfu")},
+                window_unet_call_ms=out["bench_window_step"]["unet_call_ms"],
+                long_sampler_e2e_s=out["bench_long_sampler"]["e2e_s"])
 
 
 # ------------------------------------------------------------ two-rank phases
@@ -2177,6 +2234,7 @@ def _train_dp_job(torch, mesh, cfg, steps):
     from vexpress_torch.cli import train as train_cli
     from vexpress_torch.ops import launches
     from vexpress_torch.train import train_step as vts
+    from vexpress_torch.train.step_split import StepSplit
 
     size, frames = cfg["data"]["train_width"], cfg["data"]["num_frames"]
     cfg_path = pathlib.Path(cfg["output_dir"]) / f"stage_2_rank{mesh.rank}.json"
@@ -2195,7 +2253,7 @@ def _train_dp_job(torch, mesh, cfg, steps):
 
     def timed_build(pipeline, tcfg, optimizer, *a, **kw):
         step_fn, loss_fn = real_build(pipeline, tcfg, optimizer, *a, **kw)
-        split.append(StepSplit(torch, pipeline.denoising_unet, optimizer))
+        split.append(StepSplit(pipeline.denoising_unet, optimizer))
 
         def timed_step(*step_args):
             split[0].begin()
@@ -2254,7 +2312,7 @@ def _train_dp_job(torch, mesh, cfg, steps):
 
 def train_dp_phase(torch) -> dict:
     """The training CLI's train() on 2 ranks sharing the card (gloo):
-    STAGE_2 (8-bit Adam, checkpointed UNet), bf16, 20 frames at 512x512,
+    stage_2() (8-bit Adam, checkpointed UNet), bf16, 20 frames at 512x512,
     batch 1 a rank, TRAIN_DP_STEPS steps, the checkpoint and the trained
     modules' exports at the last. Losses finite, the trainable tensors
     bitwise equal across ranks after every step, each rank's optimizer state
@@ -2265,8 +2323,9 @@ def train_dp_phase(torch) -> dict:
     from vexpress_torch.cli.train import train_config
     from vexpress_torch.models import UNetConfig
 
+    stage = stage_2()
     with tempfile.TemporaryDirectory(prefix="train_dp_") as out_dir:
-        cfg = dict(json.loads(json.dumps(STAGE_2)), checkpointing_steps=TRAIN_DP_STEPS,
+        cfg = dict(stage, checkpointing_steps=TRAIN_DP_STEPS,
                    save_all=False, output_dir=out_dir, seed=0)
         t0 = time.perf_counter()
         ranks = run_ranks(torch, _train_dp_job, DIST_RANKS, cfg, TRAIN_DP_STEPS)
@@ -2276,9 +2335,9 @@ def train_dp_phase(torch) -> dict:
                        and not f.name.endswith(".json"))
         written_gib = sum(f.stat().st_size for f in out.rglob("*") if f.is_file()) / 2**30
         free_gib = shutil.disk_usage(out_dir).free / 2**30
-    size, frames = STAGE_2["data"]["train_width"], STAGE_2["data"]["num_frames"]
+    size, frames = stage["data"]["train_width"], stage["data"]["num_frames"]
     lat = size // 8
-    per_step = expected_bwd_launches(train_config(STAGE_2, DIST_RANKS), UNetConfig(), lat, lat,
+    per_step = expected_bwd_launches(train_config(stage, DIST_RANKS), UNetConfig(), lat, lat,
                                      frames)
     expected = {k: n * TRAIN_DP_STEPS for k, n in per_step.items()}
     measured = [{k: n for k, n in r["by_shape"].items() if k[0].startswith("flash_bwd")}
@@ -2508,6 +2567,7 @@ def main() -> int:
                       ("train_full", lambda: train_full_phase(torch)),
                       ("train_cli", lambda: train_cli_phase(torch)),
                       ("cli_full", lambda: cli_full_phase(torch)),
+                      ("tools", lambda: tools_phase(torch)),
                       ("dist_parity", lambda: dist_parity_phase(torch)),
                       ("sharded", lambda: sharded_phase(torch)),
                       ("train_dp", lambda: train_dp_phase(torch)),

@@ -18,21 +18,21 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K1_EXTRA, K1_SHAPES, TRAIN_K1_EXTRA, TRAIN_K1_SHAPES
+from chip_smoke import K1_EXTRA, K1_G2_SHAPES, K1_SHAPES, TRAIN_K1_EXTRA, TRAIN_K1_SHAPES
 from vexpress_tpu.ops.flash_lite import flash_lite_fwd
 from vexpress_torch.ops import flash, flash_tma, launches
 from vexpress_torch.ops.flash_lite import flash_lite_reference, lite_packed_exp
 
 # (name, B, Lq, Lk, H, D) of every bf16 shape the kernel phase checks
 SHAPES = sorted({(n, b, lq, lk, h, i // h)
-                 for n, b, lq, lk, i, h, *dt in K1_SHAPES + TRAIN_K1_SHAPES + K1_EXTRA
-                 + TRAIN_K1_EXTRA if not dt or dt[0] == "bfloat16"})
+                 for n, b, lq, lk, i, h, *dt in K1_SHAPES + K1_G2_SHAPES + TRAIN_K1_SHAPES
+                 + K1_EXTRA + TRAIN_K1_EXTRA if not dt or dt[0] == "bfloat16"})
 LAUNCHES = [(s, flash_tma.SWIZZLE[s[5]]) for s in SHAPES]
 
 
 def test_shapes_cover_the_paths():
     assert {s[5] for s in SHAPES} == {40, 80, 160}
-    assert len(SHAPES) == 11  # 6 inference, 4 training, D=160
+    assert len(SHAPES) == 15  # 6 inference, 4 at window_group 2, 4 training, D=160
 
 
 @pytest.mark.parametrize("shape,swizzle", LAUNCHES, ids=lambda x: str(x))

@@ -48,7 +48,15 @@ want = {"vexpress_torch.train", "vexpress_torch.train.config", "vexpress_torch.t
         "vexpress_torch.utils.observability", "vexpress_torch.tools.bench_attn_variants",
         "vexpress_torch.tools.bench_motion_variants", "vexpress_torch.tools.ptxas_report",
         "vexpress_torch.train.lora", "vexpress_torch.train.dataset", "vexpress_torch.io.checkpoints",
-        "vexpress_torch.cli.train", "vexpress_torch.cli.prepare_dataset"}
+        "vexpress_torch.cli.train", "vexpress_torch.cli.prepare_dataset",
+        "vexpress_torch.train.recipe", "vexpress_torch.train.step_split",
+        "vexpress_torch.tools.common", "vexpress_torch.tools.unet_step_flops",
+        "vexpress_torch.tools.profile_train_step", "vexpress_torch.tools.profile_step",
+        "vexpress_torch.tools.bench_window_step", "vexpress_torch.tools.bench_decode",
+        "vexpress_torch.tools.bench_savemem", "vexpress_torch.tools.bench_savemem_overhead",
+        "vexpress_torch.tools.bench_long_sampler", "vexpress_torch.tools.psnr",
+        "vexpress_torch.tools.microbench_ops", "vexpress_torch.tools.bench_blocks",
+        "vexpress_torch.tools.bench_perf_table", "vexpress_torch.tools.train_convergence_demo"}
 assert want <= set(names), sorted(want - set(names))
 print("OK", len(names))
 """

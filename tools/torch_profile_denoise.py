@@ -12,38 +12,14 @@ and the device-busy share of the wall time.
 
 from __future__ import annotations
 
-import collections
 import json
 import os
-import re
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-FAMILIES = [  # first match wins
-    ("flash_fwd (K1)", r"flash_fwd"),
-    ("layout nchw<->nhwc (cuDNN)", r"nchwToNhwc|nhwcToNchw"),
-    ("conv (cuDNN)", r"fprop|conv|cudnn|implicit_gemm"),
-    ("gemm bf16 (cuBLAS)", r"nvjet|bf16.*gemm|gemm.*bf16|cutlass"),
-    ("gemm fp32 (cuBLAS)", r"gemm"),
-    ("group_norm", r"group_norm|GroupNorm|RowwiseMoments|ComputeFusedParams"),
-    ("layer_norm", r"layer_norm|LayerNorm"),
-    ("softmax", r"softmax"),
-    ("median filter", r"[Mm]edian"),
-    ("index/scatter/gather", r"index|scatter|gather"),
-    ("reduce", r"reduce"),
-    ("copy/cat/transpose", r"copy|Cat|transpose|Memcpy|Memset"),
-    ("elementwise", r"elementwise|vectorized|unrolled|upsample"),
-]
 STEPS = 2
-
-
-def family(name: str) -> str:
-    for fam, pat in FAMILIES:
-        if re.search(pat, name):
-            return fam
-    return "other"
 
 
 def main() -> int:
@@ -54,6 +30,7 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
+    from vexpress_torch.tools.common import device_us, families_ms, kernel_events
 
     card = chip_smoke.card_line()
     pipe, kw = chip_smoke.full_pipeline(torch, STEPS)
@@ -66,34 +43,26 @@ def main() -> int:
         wall = time.perf_counter() - t0
     phases = dict(pipe.timings)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # device-side events only (kernels, memcpy/memset); the CPU-side aten ops
-    # carry their kernels' time too and would count it twice
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    total_us = sum(dev_us(e) for e in kernels)
-    fams = collections.Counter()
-    for e in kernels:
-        fams[family(e.key)] += dev_us(e)
+    kernels = kernel_events(prof)
+    total_us = sum(device_us(e) for e in kernels)
+    fams = families_ms(prof)
     lines = [f"card: {card}",
              f"pipeline: bf16 {kw['width']}x{kw['height']}, {kw['video_length']} frames, {STEPS} DDIM"
              f" steps, CFG 3.5, wall {wall:.3f} s (profiled), phases {json.dumps(phases)}",
              f"device busy {total_us / 1e6:.3f} s = {100 * total_us / 1e6 / wall:.1f}% of wall",
              "", "by family (device ms, share):"]
-    for fam, us in fams.most_common():
-        lines.append(f"  {fam:24s} {us / 1e3:10.1f} ms  {100 * us / total_us:5.1f}%")
+    for fam, ms in fams.items():
+        lines.append(f"  {fam:24s} {ms:10.1f} ms  {100 * ms * 1e3 / total_us:5.1f}%")
     lines += ["", "top kernels (device ms, calls, name):"]
-    for e in sorted(kernels, key=dev_us, reverse=True)[:30]:
-        lines.append(f"  {dev_us(e) / 1e3:10.1f} {e.count:6d}  {e.key[:110]}")
+    for e in sorted(kernels, key=device_us, reverse=True)[:30]:
+        lines.append(f"  {device_us(e) / 1e3:10.1f} {e.count:6d}  {e.key[:110]}")
     text = "\n".join(lines)
     print(text)
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/torch_profile.txt", "w") as f:
         f.write(text + "\n")
     print(json.dumps({"wall_s": wall, "device_busy_s": total_us / 1e6, "phases": phases,
-                      "families_ms": {k: v / 1e3 for k, v in fams.items()}, "card": card}))
+                      "families_ms": fams, "card": card}))
     return 0
 
 

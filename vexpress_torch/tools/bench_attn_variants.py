@@ -33,8 +33,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
-import time
 from typing import Callable, List, Tuple
 
 import torch
@@ -42,8 +40,8 @@ import torch
 from ..ops.attention import sdpa
 from ..ops.flash_variants import flash_fwd_variant
 from ..ops.splash import splash_mha_fwd
+from .common import PEAK_BF16, card_line, time_ms
 
-PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 # (query rows, keys) per block of the t1_hb rows, for the JAX tool's
 # (block_q, block_k) = (1024, 1024), (2048, 1024), (512, 2048)
 HB_TILES = ((64, 64), (128, 64), (64, 128))
@@ -57,33 +55,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--shape", type=int, nargs=4, default=(48, 8, 4096, 40),
                    metavar=("B", "H", "L", "D"))
     return p.parse_args(argv)
-
-
-def card_line(device: torch.device) -> str:
-    if device.type != "cuda":
-        return "cpu (plain versions, host clock)"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[device.index or 0]
-
-
-def time_ms(fn: Callable[[], torch.Tensor], device: torch.device, reps: int) -> float:
-    """Mean ms of fn() after one warm-up call: CUDA events on the card, the
-    host clock on the CPU."""
-    fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) / reps * 1e3
-    torch.cuda.synchronize(device)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / reps
 
 
 def prescale(q: torch.Tensor, scale: float) -> torch.Tensor:

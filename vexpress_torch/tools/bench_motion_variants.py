@@ -34,7 +34,8 @@ from typing import Callable, List, Tuple
 import torch
 
 from ..ops.attention import temporal_attention
-from .bench_attn_variants import SEED, card_line, time_ms
+from .bench_attn_variants import SEED
+from .common import card_line, time_ms
 
 REPS = 8  # timed calls per row
 

@@ -469,7 +469,7 @@ def build_train_step(pipeline, cfg: TrainConfig, optimizer: TrainOptimizer,
             loss = loss.mean(dim=tuple(range(1, loss.dim()))) * weights
         return loss.mean()
 
-    mesh = optimizer.mesh
+    mesh = None if optimizer is None else optimizer.mesh  # None: a caller of loss_fn alone
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
