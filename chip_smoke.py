@@ -12,10 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   kernel        each kernel at the main paths' shapes against its plain
                 version: K1's forward and K2 (VEXPRESS_FLASH_LITE's bf16-exp
                 forward, also against exact fp32 attention) at the inference
-                shapes, window_group 1 and 2; at the training shapes of stage 2 and stage 3 K1
-                with its gradient (forward with log-sum-exp, dk/dv and dq
-                kernels) through FlashAttention, with SDPA's backward alone
-                and the di reduction timed beside them and stage 3's
+                shapes, window_group 1 and 2, and in fp32 at the first four;
+                at the training shapes of stage 2 and stage 3, at 512x512
+                and at 1024x1024's D=160 level, K1 with its gradient
+                (forward with log-sum-exp, dk/dv and dq kernels) through
+                FlashAttention, with SDPA's backward alone and the di
+                reduction timed beside them and stage 3's and 1024x1024's
                 backward launches reckoned; times of each kernel, its plain version, one
                 PyTorch library call (a yardstick only), K1 beside K2 on the
                 same inputs, and the card's bound; at
@@ -137,11 +139,12 @@ K1_G2_SHAPES = [
     ("g2 attn1@32x32", 96, 1024, 1024, 640, 8),
     ("g2 attn1_5@32x32 grouped", 1, 48 * 1024, 1024, 640, 8),
 ]
-# checks off the main path: fp32 (the parity phase's type) and D=160
+# checks off the main path: fp32 (the parity phase's type, and the inference
+# CLI's --dtype fp32 at the main path's four shapes) and D=160
 K1_EXTRA = [
     ("fp32 attn1@32x32", 2, 1024, 1024, 640, 8, "float32"),
     ("bf16 D=160", 2, 1024, 1024, 1280, 8, "bfloat16"),
-]
+] + [("fp32 " + n, b, lq, lk, i, h, "float32") for n, b, lq, lk, i, h in K1_SHAPES[:4]]
 
 
 # K1 with its gradient at the training path's shapes: stage 2 at 512x512 (64x64
@@ -165,7 +168,24 @@ STAGE3_K1_SHAPES = [
     ("stage 3 reference-net attn1@64x64", 1, 4096, 4096, 320, 8),
     ("stage 3 reference-net attn1@32x32", 1, 1024, 1024, 640, 8),
 ]
+# K1 with its gradient at D=160, the third level (image/32) of the SD1.5
+# UNet: at 512x512 that level has 16x16 = 256 tokens, below flash's Lk >= 512,
+# but at 1024x1024 (128x128 latent; the CLIs' --image_width/--image_height,
+# configs/stage_*.yaml's train_width/train_height) it has 32x32 = 1024 and K1
+# runs there forward and backward. Stage 2 at 20 frames and stage 3 at 8, as
+# above; not run end to end, their launches are reckoned
+# (`reckoned_bwd_launches` at HIRES_LATENT)
+HIRES_LATENT = 128
+HIRES_K1_SHAPES = [
+    ("1024² attn1@32x32", TRAIN_FRAMES, 1024, 1024, 1280, 8),
+    ("1024² attn1_5@32x32 grouped", 1, TRAIN_FRAMES * 1024, 1024, 1280, 8),
+    ("1024² stage 3 attn1@32x32", STAGE3_FRAMES, 1024, 1024, 1280, 8),
+    ("1024² stage 3 attn1_5@32x32 grouped", 1, STAGE3_FRAMES * 1024, 1024, 1280, 8),
+    ("1024² stage 3 reference-net attn1@32x32", 1, 1024, 1024, 1280, 8),
+]
+HIRES_STAGE3 = HIRES_K1_SHAPES[2:]
 # off the training path: fp32 at the train_parity phase's head dim, and D=160
+# at 512x512's batch 2 (the row the D=160 backward's earlier times were read at)
 TRAIN_K1_EXTRA = [
     ("fp32 D=40", 4, 1024, 1024, 80, 2, "float32"),
     ("bf16 D=160", 2, 1024, 1024, 1280, 8, "bfloat16"),
@@ -261,9 +281,9 @@ def exp_floor_ms(exps: float, clock_mhz: float) -> float:
 WGMMA_WAITS = 5
 # kernels of each bf16 wgmma family in the library (a part of their mangled
 # names): K1 and K2 at 3 head dims, T1's 9 and T2's 3 tilings, the backward
-# pair at D=40 and 80; each with at most WGMMA_WAITS fixed waits
+# pair at D=40, 80 and 160; each with at most WGMMA_WAITS fixed waits
 SASS_FAMILIES = {"flash_fwd_wgmma": 6, "flash_fwd_variant_wgmma": 9, "splash_fwd_wgmma": 3,
-                 "flash_bwd_dkv_wgmma": 2, "flash_bwd_dq_wgmma": 2}
+                 "flash_bwd_dkv_wgmma": 3, "flash_bwd_dq_wgmma": 3}
 
 
 def sass_phase() -> dict:
@@ -511,15 +531,18 @@ def k2_row(torch, q, k, v, heads, exact, k1_row) -> dict:
     return row
 
 
-def stage3_bwd_launches() -> dict:
-    """K1's backward launches of one stage-3 train step at 512x512 (latent
-    64x64) on the SD1.5 geometry, by (kernel, B, Lq, Lk, D), reckoned by
-    `expected_bwd_launches` from stage 3's trainability."""
+def reckoned_bwd_launches(stage: int, latent: int) -> dict:
+    """K1's backward launches of one train step of stage 2 (TRAIN_FRAMES
+    frames) or stage 3 (STAGE3_FRAMES) at a square latent of `latent` (64 at
+    512x512, HIRES_LATENT at 1024x1024) on the SD1.5 geometry, by (kernel,
+    B, Lq, Lk, D), reckoned by `expected_bwd_launches` from the stage's
+    trainability."""
     from vexpress_torch.models.unet_3d import UNetConfig
     from vexpress_torch.train import TrainConfig
 
-    return expected_bwd_launches(TrainConfig.stage("stage_3", num_frames=STAGE3_FRAMES),
-                                 UNetConfig(), 64, 64, STAGE3_FRAMES)
+    frames = TRAIN_FRAMES if stage == 2 else STAGE3_FRAMES
+    return expected_bwd_launches(TrainConfig.stage(f"stage_{stage}", num_frames=frames),
+                                 UNetConfig(), latent, latent, frames)
 
 
 def bwd_kernel_times(torch, q, k, v, do, out, lse, heads) -> dict:
@@ -549,19 +572,22 @@ def bwd_kernel_times(torch, q, k, v, do, out, lse, heads) -> dict:
 
 
 def grad_kernel_rows(torch, gen) -> list:
-    """K1 with its gradient at every training shape of stages 2 and 3:
-    flash_sdpa on inputs that require a gradient (FlashAttention), .backward
-    with a fixed do; the forward's output and log-sum-exp and dq, dk, dv
-    against the fp32 plain versions; then each kernel timed alone, beside the
-    di reduction and SDPA's backward alone."""
+    """K1 with its gradient at every training shape of stages 2 and 3, at
+    512x512 and at 1024x1024's D=160 level: flash_sdpa on inputs that require
+    a gradient (FlashAttention), .backward with a fixed do; the forward's
+    output and log-sum-exp and dq, dk, dv against the fp32 plain versions;
+    then each kernel timed alone, beside the di reduction and SDPA's backward
+    alone."""
     import torch.nn.functional as F
     from vexpress_torch.ops import flash, flash_tma, launches
 
     dev = torch.device("cuda")
     rows = []
-    stage3 = stage3_bwd_launches()
+    reckoned_by = {(3, 64): reckoned_bwd_launches(3, 64),
+                   (2, HIRES_LATENT): reckoned_bwd_launches(2, HIRES_LATENT),
+                   (3, HIRES_LATENT): reckoned_bwd_launches(3, HIRES_LATENT)}
     cases = ([(n, b, lq, lk, i, h, "bfloat16") for n, b, lq, lk, i, h in TRAIN_K1_SHAPES
-              + STAGE3_K1_SHAPES] + TRAIN_K1_EXTRA)
+              + STAGE3_K1_SHAPES + HIRES_K1_SHAPES] + TRAIN_K1_EXTRA)
     for name, b, lq, lk, inner, heads, dtype_name in cases:
         dtype = getattr(torch, dtype_name)
         bf16 = dtype == torch.bfloat16
@@ -640,19 +666,22 @@ def grad_kernel_rows(torch, gen) -> list:
                                 PEAK_BF16 if bf16 else PEAK_FP32)
         del q, k, v, do, out_k, lse
         key = (b, lq, lk, d)
+        case = (name, b, lq, lk, inner, heads)
+        latent = HIRES_LATENT if case in HIRES_K1_SHAPES else 64
         row = dict(shape=name, dtype=dtype_name, B=b, Lq=lq, Lk=lk, H=heads, D=d,
-                   main_path=bf16 and (name, b, lq, lk, inner, heads) in TRAIN_K1_SHAPES,
-                   stage=3 if (name, b, lq, lk, inner, heads) in STAGE3_K1_SHAPES else 2,
+                   main_path=bf16 and case in TRAIN_K1_SHAPES,
+                   stage=3 if case in STAGE3_K1_SHAPES + HIRES_STAGE3 else 2, latent=latent,
                    dkv_parts=parts, fwd_ms=fwd_ms, **bwd,
                    plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
                    sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
                    bounds={k_: dict(ms=ms, by=by) for k_, (ms, by) in bounds.items()},
                    errors=errs)
         rows.append(row)
-        # stage 3's launches are reckoned, not run: the log line has them and
-        # the row (which the kernels line prints) has not
-        reckoned = {kernel: stage3.get((kernel,) + key, 0)
-                    for kernel in ("flash_bwd_dkv", "flash_bwd_dq")}
+        # stage 3's and 1024x1024's launches are reckoned, not run: the log
+        # line has them and the row (which the kernels line prints) has not
+        reckoning = reckoned_by.get((row["stage"], latent))
+        reckoned = {kernel: reckoning.get((kernel,) + key, 0)
+                    for kernel in ("flash_bwd_dkv", "flash_bwd_dq")} if reckoning else None
         log(f"[kernel] {name} {dtype_name} B={b} Lq={lq} Lk={lk} D={d} with gradient: "
             f"fwd+lse {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f}, exp floor "
             f"{exp_floor_ms(b * heads * lq * lk, fwd_clock):.3f} at {fwd_clock:.0f} MHz), "
@@ -662,7 +691,8 @@ def grad_kernel_rows(torch, gen) -> list:
             f"plain fwd {plain_fwd_ms:.3f} ms, plain bwd "
             f"{plain_bwd_ms:.3f} ms, sdpa fwd {sdpa_fwd_ms:.3f} ms, fwd+bwd "
             f"{sdpa_fwd_bwd_ms:.3f} ms"
-            + (f"; stage-3 launches a step (reckoned) {reckoned}" if row["stage"] == 3 else "")
+            + (f"; stage-{row['stage']} launches a step at latent {latent}² (reckoned) "
+               f"{reckoned}" if reckoned else "")
             + "; max|d| "
             + ", ".join(f"{w_} {e['max_abs_err']:.2e}" for w_, e in errs.items())
             + "; mean|d| " + ", ".join(f"{w_} {e['mean_abs_err']:.2e}" for w_, e in errs.items()
@@ -2425,10 +2455,11 @@ def kernels_line(results: dict) -> list:
     train_bwd = {p: {tuple(key): n for *key, n in bwd_rows_by[p]} for p in train_paths}
     fwd_rows = results["kernel"]["rows"]
     grad_rows = results["kernel"]["grad_rows"]
-    for r in fwd_rows:
-        r["launches"] = inf_by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
+    for r in fwd_rows:  # the inference paths run bf16
+        r["launches"] = (inf_by_shape.get((r["B"], r["Lq"], r["Lk"], r["D"]), 0)
+                         if r["dtype"] == "bfloat16" else 0)
     for r in grad_rows:
-        if r["stage"] != 2:  # the training paths run stage 2 only
+        if r["stage"] != 2 or r["latent"] != 64:  # the training paths run stage 2 at 512x512
             continue
         key = (r["B"], r["Lq"], r["Lk"], r["D"])
         r["launches_by_path"] = {p: dict(flash_fwd=train_fwd[p].get(key, 0),
@@ -2479,8 +2510,8 @@ def kernels_line(results: dict) -> list:
             "vexpress_tpu/ops/flash.py:93, which reaches the library's "
             "jax/experimental/pallas/ops/tpu/flash_attention.py" + lib_line, parts,
             sum(by_path.values()),
-            sources=["vexpress_torch/csrc/flash_bwd_wgmma.cuh (bf16, D=40 and 80)",
-                     "vexpress_torch/csrc/flash_bwd.cu (launch, split sum, D=160, fp32)"],
+            sources=["vexpress_torch/csrc/flash_bwd_wgmma.cuh (bf16)",
+                     "vexpress_torch/csrc/flash_bwd.cu (launch, split sum, fp32)"],
             plain_is="flash_sdpa_bwd_reference (dq, dk and dv at once)",
             library_is="scaled_dot_product_attention's backward alone (dq, dk and dv at "
                        "once, its own di included), from one saved forward",
@@ -2491,9 +2522,10 @@ def kernels_line(results: dict) -> list:
                      enumerate(results["sharded"]["lite_launches_by_shape"])}}
     lite_by = {p: {tuple(key): n for *key, n in rows} for p, rows in lite_paths.items()}
     lite_rows = results["kernel"]["lite_rows"]
-    for r in lite_rows:
+    for r in lite_rows:  # the CLI's paths run bf16
         key = (r["B"], r["Lq"], r["Lk"], r["D"])
-        r["launches_by_path"] = {p: by.get(key, 0) for p, by in lite_by.items()}
+        r["launches_by_path"] = {p: by.get(key, 0) if r["dtype"] == "bfloat16" else 0
+                                 for p, by in lite_by.items()}
         r["launches"] = sum(r["launches_by_path"].values())
     ran = [r for r in lite_rows if r["main_path"] and r["launches"]]
     kernels.append(entry(

@@ -8,23 +8,29 @@ the split of the dk/dv kernel's query axis, and the wrapper's refusals.
 import pytest
 import torch
 
-from chip_smoke import STAGE3_K1_SHAPES, TRAIN_K1_SHAPES
+from chip_smoke import HIRES_K1_SHAPES, STAGE3_K1_SHAPES, TRAIN_K1_EXTRA, TRAIN_K1_SHAPES
 from vexpress_torch.ops import flash, flash_tma, launches
 
-# (B, Lq, Lk, H, D) of the training rows, then of tests/test_torch_flash_grad_cuda.py
+# (B, Lq, Lk, H, D) of the training rows (512x512, and 1024x1024's D=160
+# level), then of tests/test_torch_flash_grad_cuda.py
 TRAIN = sorted({(b, lq, lk, h, i // h)
-                for _, b, lq, lk, i, h in TRAIN_K1_SHAPES + STAGE3_K1_SHAPES})
-CARD = [(2, lq, lk, 2, d) for d in (40, 80)
+                for _, b, lq, lk, i, h in TRAIN_K1_SHAPES + STAGE3_K1_SHAPES + HIRES_K1_SHAPES})
+CARD = [(2, lq, lk, 2, d) for d in (40, 80, 160)
         for lq, lk in ((512, 1024), (2048, 512), (192, 320), (320, 192), (64, 64))] + [
-    (1, 8192, 1024, 8, 80), (1, 1024, 1024, 8, 80), (1, 1024, 1024, 8, 40), (2, 1024, 1024, 8, 40)]
+    (1, 8192, 1024, 8, 80), (1, 1024, 1024, 8, 80), (1, 1024, 1024, 8, 40), (2, 1024, 1024, 8, 40),
+    (1, 8192, 1024, 8, 160), (1, 1024, 1024, 8, 160), (2, 1024, 1024, 8, 160)]
 SHAPES = TRAIN + CARD
 KERNELS = ("dkv", "dq")
 
 
 def test_training_shapes_are_the_wgmma_kernels():
-    """Every training row is bf16 at D=40 or 80, which the wgmma kernels take."""
-    assert len(TRAIN) == 10
-    assert {s[4] for s in TRAIN} == set(flash_tma.BWD_SWIZZLE) == {40, 80}
+    """Every training row is bf16 at D=40, 80 or 160, which the wgmma kernels
+    take, and so is the bf16 D=160 row off the path."""
+    assert len(TRAIN) == 15
+    assert {s[4] for s in TRAIN} == set(flash_tma.BWD_SWIZZLE) == {40, 80, 160}
+    extra = [(b, lq, lk, h, i // h) for _, b, lq, lk, i, h, dt in TRAIN_K1_EXTRA
+             if dt == "bfloat16"]
+    assert extra == [(2, 1024, 1024, 8, 160)]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -33,14 +39,15 @@ def test_bwd_geometry_meets_tma_rules(shape, kernel):
     b, lq, lk, h, d = shape
     geom = flash_tma.bwd_geometry(b, lq, lk, h, d, kernel)
     sw = flash_tma.BWD_SWIZZLE[d]
+    rows = 32 if (d, kernel) == (160, "dkv") else 64  # a ring tile's rows
     assert geom["kernel"] == kernel and geom["swizzle"] == sw
     assert flash_tma.tma_violations(geom) == []
     for name, length in (("q", lq), ("kv", lk)):
         m = geom[name]
         assert m["dims"] == (d, h, length, b)
         assert m["strides"] == (2 * d, 2 * h * d, 2 * length * h * d)
-        assert m["box"] == (sw // 2, 1, 64, 1)  # 64-row boxes on both axes
-        assert length % m["box"][2] == 0  # whole ring tiles: nothing masked
+        assert m["box"] == (sw // 2, 1, rows, 1)  # one box of a ring tile's rows on both axes
+        assert length % 64 == 0  # whole ring tiles and warpgroups: nothing masked
     nv = geom["padded_head_dim"]
     assert nv % 16 == 0 and d <= nv < d + 16 and geom["chunks"] * sw // 2 >= nv
     along = lk if kernel == "dkv" else lq
@@ -49,7 +56,7 @@ def test_bwd_geometry_meets_tma_rules(shape, kernel):
     assert parts == (flash_tma.dkv_splits(b, h, lq, lk) if kernel == "dkv" else 1)
     assert geom["smem"] == flash_tma.bwd_tile(d)[f"{kernel}_smem"] <= flash_tma.SMEM_LIMIT
     arg = list(flash_tma.bwd_geometry_arg(geom))
-    assert len(arg) == 21 and arg[:7] == [sw, sw // 2, 64, *geom["grid"], geom["smem"]]
+    assert len(arg) == 21 and arg[:7] == [sw, sw // 2, rows, *geom["grid"], geom["smem"]]
 
 
 @pytest.mark.parametrize("d", sorted(flash_tma.BWD_SWIZZLE))
@@ -60,18 +67,22 @@ def test_bwd_tile_is_the_launch_geometry(d):
     assert tuple(t) == flash_tma.BWD_TILE_FIELDS
     for kernel in KERNELS:
         geom = flash_tma.bwd_geometry(2, 256, 256, 8, d, kernel)
-        assert geom["q"]["box"] == geom["kv"]["box"] == (t["box_cols"], 1, t["box_rows"], 1)
+        rows = t[f"{kernel}_rows"]
+        assert geom["q"]["box"] == geom["kv"]["box"] == (t["box_cols"], 1, rows, 1)
         assert geom["smem"] == t[f"{kernel}_smem"] and geom["threads"] == t["threads"]
         assert geom["blocks_per_sm"] == 1
-        # two 128-row fixed tiles, `stages` stages of two 64-row tiles, at 128
-        # bytes a row and one chunk (D=40) or two (D=80); lse/di (dk/dv: 64 of
-        # each a stage, dq: 128 of each once), barriers, alignment slack
-        ns, chunks = t[f"{kernel}_stages"], 1 if d == 40 else 2
-        assert t[f"{kernel}_smem"] == (chunks * 128 * (2 * 128 + 2 * ns * 64)
-                                       + max(ns * 512, 1024) + 8 * (2 * ns + 1) + 1024)
+        # two 128-row fixed tiles, `stages` stages of two ring tiles of `rows`
+        # rows, at `swizzle` bytes a row and one chunk (D=40), two (D=80) or
+        # five (D=160); lse/di (dk/dv: `rows` of each a stage, dq: 128 of each
+        # once), barriers, alignment slack
+        ns, chunks, sw = t[f"{kernel}_stages"], {40: 1, 80: 2, 160: 5}[d], t["swizzle"]
+        assert t[f"{kernel}_smem"] == (chunks * sw * (2 * 128 + 2 * ns * rows)
+                                       + max(ns * rows * 8, 1024) + 8 * (2 * ns + 1) + 1024)
         assert t[f"{kernel}_smem"] <= flash_tma.SMEM_LIMIT
-    assert t["block_rows"] == 2 * t["box_rows"]  # two consumer warpgroups of a box each
-    assert (t["dkv_stages"], t["dq_stages"]) == (3, 4)
+        assert 64 % rows == 0  # a consumer warpgroup's 64 rows are whole boxes
+    assert t["block_rows"] == 128  # two consumer warpgroups of 64 rows each
+    assert (t["dkv_rows"], t["dq_rows"], t["dkv_stages"], t["dq_stages"]) == (
+        (32, 64, 4, 3) if d == 160 else (64, 64, 3, 4))
 
 
 @pytest.mark.parametrize("b,lq,lk,heads", [(20, 4096, 4096, 8), (1, 81920, 4096, 8),
@@ -85,11 +96,12 @@ def test_dkv_splits_cover_every_query_once(b, lq, lk, heads):
     one part."""
     parts = flash_tma.dkv_splits(b, heads, lq, lk)
     assert parts >= 1
-    ranges = flash_tma.dkv_parts(lq, parts)
-    assert len(ranges) == parts
-    walked = [t for start, end in ranges for t in range(start, end)]
-    assert walked == list(range(lq // 64))
-    assert all(end > start for start, end in ranges)
+    for rows in (64, 32):  # the ring tiles at D=40 and 80, and at D=160
+        ranges = flash_tma.dkv_parts(lq, parts, rows)
+        assert len(ranges) == parts
+        walked = [t for start, end in ranges for t in range(start, end)]
+        assert walked == list(range(lq // rows))
+        assert all(end > start for start, end in ranges)
     blocks = b * heads * -(-lk // 128)
     if parts > 1:
         assert blocks * parts <= flash_tma.N_SMS
@@ -130,13 +142,13 @@ def fresh_bwd_tile_checks(monkeypatch):
 
 def test_bwd_tile_check_passes_once_per_head_dim(fresh_bwd_tile_checks):
     lib = _FakeBwdTileLibrary({d: flash_tma.bwd_tile(d) for d in flash_tma.BWD_SWIZZLE})
-    for d in (40, 80, 40, 80):
+    for d in (40, 80, 160, 40, 80, 160):
         flash._check_bwd_tile(lib, d)
-    assert lib.calls == 2 and flash._bwd_tiles_checked == {40, 80}
+    assert lib.calls == 3 and flash._bwd_tiles_checked == {40, 80, 160}
 
 
 def test_bwd_tile_check_leaves_unbuilt_head_dims_to_the_launch(fresh_bwd_tile_checks):
-    flash._check_bwd_tile(_FakeBwdTileLibrary({}), 160)
+    flash._check_bwd_tile(_FakeBwdTileLibrary({}), 64)
     assert not flash._bwd_tiles_checked
 
 
@@ -157,9 +169,8 @@ def test_bwd_launch_geometry_is_cached_and_checked():
     assert flash._bwd_tma_geometry(1, 8192, 1024, 8, 80, "dkv") is first
     geom = flash_tma.bwd_geometry(1, 8192, 1024, 8, 80, "dkv")
     assert list(first[0]) == list(flash_tma.bwd_geometry_arg(geom)) and first[1] == 2
-    for d in (64, 160):
-        with pytest.raises(ValueError, match=f"no instantiation for D={d}"):
-            flash._bwd_tma_geometry(1, 128, 128, 2, d, "dq")
+    with pytest.raises(ValueError, match="no instantiation for D=64"):
+        flash._bwd_tma_geometry(1, 128, 128, 2, 64, "dq")
     with pytest.raises(ValueError, match="'dkv' or 'dq'"):
         flash_tma.bwd_geometry(1, 128, 128, 2, 40, "fwd")
 
@@ -200,9 +211,10 @@ def test_bench_flash_bwd_takes_chip_smokes_shapes_and_needs_the_card():
             bench_flash_bwd.main()
 
 
-def _grad_row(stage, main_path, b=1, lq=4096, lk=4096, d=40):
+def _grad_row(stage, main_path, b=1, lq=4096, lk=4096, d=40, latent=64):
     bound = dict(ms=0.1, by="operations")
     return dict(shape=f"stage {stage}", B=b, Lq=lq, Lk=lk, D=d, stage=stage, main_path=main_path,
+                latent=latent,
                 fwd_ms=1.0, plain_fwd_ms=2.0, sdpa_fwd_ms=1.0, dkv_ms=1.0, dq_ms=1.0,
                 plain_bwd_ms=3.0, sdpa_bwd_ms=2.0,
                 bounds={k: bound for k in ("fwd", "dkv", "dq", "pair")},
@@ -212,13 +224,15 @@ def _grad_row(stage, main_path, b=1, lq=4096, lk=4096, d=40):
 def test_kernels_line_gives_train_full_launches_to_stage_2_rows_only():
     """chip_smoke.py's kernels line holds only what its run measured: a stage-3
     row at the same (B, Lq, Lk, D) as a stage-2 row does not take train_full's
-    (or train_cli's, or train_dp's ranks') launches, and no row carries stage
-    3's reckoned launches; a stage-2 row sums the stage-2 paths, path by path
-    and rank by rank; K2's line adds the sharded phase's ranks."""
+    (or train_cli's, or train_dp's ranks') launches, nor does a stage-2 row at
+    1024x1024's latent, and no row carries stage 3's or 1024x1024's reckoned
+    launches; a stage-2 row sums the stage-2 paths, path by path and rank by
+    rank; K2's line adds the sharded phase's ranks."""
     import chip_smoke
 
-    fwd = dict(B=1, Lq=4096, Lk=4096, D=40, main_path=True, kernel_ms=1.0, plain_ms=2.0,
-               library_ms=1.0, bound_ms=0.1, bound_by="operations", max_abs_err=1e-3)
+    fwd = dict(B=1, Lq=4096, Lk=4096, D=40, dtype="bfloat16", main_path=True, kernel_ms=1.0,
+               plain_ms=2.0, library_ms=1.0, bound_ms=0.1, bound_by="operations",
+               max_abs_err=1e-3)
     variant = dict(ms=1.0, plain_ms=2.0, library_ms=1.0, bound_ms=0.1, bound_by="operations",
                    max_abs_err=1e-3, k1_ms=1.0)
     key = [1, 4096, 4096, 40]
@@ -234,7 +248,8 @@ def test_kernels_line_gives_train_full_launches_to_stage_2_rows_only():
                        bwd_launches_by_shape=[["flash_bwd_dkv"] + key + [4],
                                               ["flash_bwd_dq"] + key + [4]]),
         kernel=dict(rows=[fwd], lite_rows=[dict(fwd, k1_ms=1.0, exps=1)],
-                    grad_rows=[_grad_row(2, True), _grad_row(3, False)]),
+                    grad_rows=[_grad_row(2, True), _grad_row(3, False),
+                               _grad_row(2, False, latent=128)]),
         train_dp=dict(launches=[{"flash_fwd": 10, "flash_bwd_dkv": 2, "flash_bwd_dq": 2}] * 2,
                       fwd_launches_by_shape=[[key + [10]]] * 2,
                       bwd_launches_by_shape=[[["flash_bwd_dkv"] + key + [2],
@@ -246,15 +261,16 @@ def test_kernels_line_gives_train_full_launches_to_stage_2_rows_only():
                            bench_launches={"flash_fwd_variant": 12, "splash_fwd": 12}))
     kernels = {k["name"]: k for k in chip_smoke.kernels_line(results)}
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
-        stage2, stage3 = kernels[name]["shapes"]
+        stage2, stage3, hires = kernels[name]["shapes"]
         rank = dict(flash_fwd=10, flash_bwd_dkv=2, flash_bwd_dq=2)
         assert stage2["launches_by_path"] == dict(
             train_full=dict(flash_fwd=25, flash_bwd_dkv=5, flash_bwd_dq=5),
             train_cli=dict(flash_fwd=20, flash_bwd_dkv=4, flash_bwd_dq=4),
             train_dp_rank0=rank, train_dp_rank1=rank)
         assert stage2["launches"] == dict(flash_fwd=65, flash_bwd_dkv=13, flash_bwd_dq=13)
-        assert "launches" not in stage3 and "launches_by_path" not in stage3
-        assert not any("reckoned" in k for row in (stage2, stage3) for k in row)
+        for row in (stage3, hires):
+            assert "launches" not in row and "launches_by_path" not in row
+        assert not any("reckoned" in k for row in (stage2, stage3, hires) for k in row)
         assert kernels[name]["launches"] == 13
         assert kernels[name]["launches_by_path"] == dict(train_full=5, train_cli=4,
                                                          train_dp_rank0=2, train_dp_rank1=2)

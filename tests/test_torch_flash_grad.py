@@ -19,7 +19,8 @@ from vexpress_torch.ops import flash, launches
 from .torch_port_utils import close, rand, t
 
 TOL = 1e-5
-CASES = [(2, 256, 256, 2, 40), (1, 256, 128, 2, 80), (2, 4 * 128, 128, 2, 40)]  # (B, Lq, Lk, H, D)
+CASES = [(2, 256, 256, 2, 40), (1, 256, 128, 2, 80), (2, 4 * 128, 128, 2, 40),
+         (1, 256, 128, 1, 160)]  # (B, Lq, Lk, H, D)
 
 
 def _inputs(b, lq, lk, heads, d, seed=0):

@@ -1,6 +1,6 @@
 """K1 with a gradient on the card: the forward with its log-sum-exp and the
-backward kernels (vexpress_torch/csrc/flash_bwd.cu; bf16 at D=40 and 80
-through csrc/flash_bwd_wgmma.cuh) against their plain versions, and
+backward kernels (vexpress_torch/csrc/flash_bwd.cu; bf16 at D=40, 80 and
+160 through csrc/flash_bwd_wgmma.cuh) against their plain versions, and
 `flash_sdpa` on CUDA inputs that require a gradient; the wgmma backward at
 trailing 64-row tiles, with the query axis split, launched twice (bitwise
 equal), and its SASS. Marked `cuda`: without a CUDA device every test skips.
@@ -148,7 +148,7 @@ def _tma_backward(dev, b, lq, lk, d, heads, seed):
     return grads, _plain_grads(q, k, v, do, heads), (q, k, v, do, lse, di)
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 160])
 @pytest.mark.parametrize("lq,lk", [(192, 320), (320, 192), (64, 64)])
 def test_wgmma_backward_trailing_tiles(dev, lq, lk, d):
     """A trailing 64-row tile inside a 128-row block on each axis (and a
@@ -163,7 +163,8 @@ def test_wgmma_backward_trailing_tiles(dev, lq, lk, d):
 
 
 @pytest.mark.parametrize("b,lq,lk,d", [(1, 8 * 1024, 1024, 80), (1, 1024, 1024, 80),
-                                       (1, 1024, 1024, 40)])
+                                       (1, 1024, 1024, 40), (1, 8 * 1024, 1024, 160),
+                                       (1, 1024, 1024, 160)])
 def test_wgmma_backward_split_query_axis(dev, b, lq, lk, d):
     """The reference net's and attn1_5's B=1 rows: the dk/dv kernel cuts the
     query axis into parts (fp32 partial sums, added in order by
@@ -177,7 +178,8 @@ def test_wgmma_backward_split_query_axis(dev, b, lq, lk, d):
         _assert_within_bar(got, ref, name)
 
 
-@pytest.mark.parametrize("b,lq,lk,d", [(2, 1024, 1024, 40), (1, 8 * 1024, 1024, 80)])
+@pytest.mark.parametrize("b,lq,lk,d", [(2, 1024, 1024, 40), (1, 8 * 1024, 1024, 80),
+                                       (2, 1024, 1024, 160), (1, 8 * 1024, 1024, 160)])
 def test_wgmma_backward_is_deterministic(dev, b, lq, lk, d):
     """Two launches on the same inputs give bitwise-equal dq, dk and dv, with
     one part and with the query axis split."""
@@ -194,17 +196,21 @@ def test_library_bwd_tile_is_flash_tma_bwd_tile(dev):
     csrc/flash_bwd_wgmma.cuh's BwdTile) is ops/flash_tma.py's."""
     lib = flash._library()
     out = (ctypes.c_longlong * len(flash_tma.BWD_TILE_FIELDS))()
+    assert set(flash_tma.BWD_SWIZZLE) == {40, 80, 160}
     for d in flash_tma.BWD_SWIZZLE:
         assert lib.vx_flash_bwd_tile(d, out) == 0
         assert dict(zip(flash_tma.BWD_TILE_FIELDS, out)) == flash_tma.bwd_tile(d)
-    assert lib.vx_flash_bwd_tile(160, out) != 0
+    assert lib.vx_flash_bwd_tile(64, out) != 0
 
 
 def test_bf16_backward_kernels_use_wgmma_and_tma(dev):
     """Every bf16 wgmma backward kernel in the built library (dk/dv and dq at
-    D=40 and 80) holds HGMMA (wgmma) and UTMALDG (TMA loads) in its SASS."""
+    D=40, 80 and 160) holds HGMMA (wgmma) and UTMALDG (TMA loads) in its SASS,
+    and the library holds no mma.sync (HMMA) backward kernel."""
     for part in ("flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma"):
         ops = sass_ops(flash.build(), part)
-        assert len(ops) == 2, (part, sorted(ops))
+        assert len(ops) == 3, (part, sorted(ops))
         for name, found in ops.items():
             assert {"HGMMA", "UTMALDG"} <= set(found), (name, found)
+    for name, found in sass_ops(flash.build(), "flash_bwd_d").items():  # every backward kernel
+        assert "HMMA" not in found, (name, found)

@@ -81,9 +81,11 @@ def test_interpolate_and_audio_windows():
 
 
 def test_median_filter_and_uint8():
-    video = np.random.default_rng(4).uniform(size=(5, 9, 11, 3)).astype(np.float32)
-    got = t_media.median_filter_3d(t(video), frame_chunk=2).numpy()
-    np.testing.assert_array_equal(got, np.asarray(j_media.median_filter_3d(jnp.asarray(video))))
+    for frames in (5, 1, 2):  # one and two frames: the reflected frame axis's edge cases
+        video = np.random.default_rng(4).uniform(size=(frames, 9, 11, 3)).astype(np.float32)
+        got = t_media.median_filter_3d(t(video), frame_chunk=2).numpy()
+        np.testing.assert_array_equal(got,
+                                      np.asarray(j_media.median_filter_3d(jnp.asarray(video))))
     ramp = np.linspace(-0.1, 1.1, 101, dtype=np.float32)
     np.testing.assert_array_equal(t_media.to_uint8(t(ramp)).numpy(),
                                   (np.clip(ramp, 0, 1) * 255).astype(np.uint8))

@@ -1,12 +1,12 @@
-// K1's bf16 backward for Hopper (sm_90a) at D=40 and D=80: the dk/dv and dq
-// kernels on TMA loads into an mbarrier ring, wgmma and warp specialisation.
+// K1's bf16 backward for Hopper (sm_90a) at D=40, 80 and 160: the dk/dv and
+// dq kernels on TMA loads into an mbarrier ring, wgmma and warp specialisation.
 // flash_bwd.cu states what they replace and the bound, and launches them
 // (`launch_dkv_wgmma`, `launch_dq_wgmma`).
 //
 // Both kernels run one block of 3 warpgroups (384 threads) an SM:
 // * Warpgroup 2 is the producer (setmaxnreg.dec). Its first thread loads the
-//   block's fixed tiles once, then walks the other axis in tiles of 64 rows
-//   into a ring of stages (DKV_STAGES, DQ_STAGES), by TMA, with a `full`
+//   block's fixed tiles once, then walks the other axis in ring tiles of
+//   ROWS rows (DkvTile, DqTile) into a ring of stages, by TMA, with a `full`
 //   mbarrier (the TMA's byte count) and an `empty` one (one arrive per
 //   consuming warp) a stage, as the forward does.
 // * Warpgroups 0 and 1 are the consumers (setmaxnreg.inc), 64 rows of the
@@ -15,11 +15,16 @@
 //   boxes are not loaded and the empty barriers count only the warps that
 //   consume. Every ring tile is whole (L is a multiple of 64), so no logit
 //   is masked, no lse or di past Lq is read and no row past L is stored.
+// * Ring tiles are 64 rows, but 32 queries in dk/dv at D=160: there a
+//   consumer's dK and dV hold 160 fp32 registers of the 240 it has, and a
+//   32-query tile makes S^T and dP^T 16 registers each (wgmma N=32) and the
+//   dV, dK products two k-steps (K=32). Each box is one ring tile's rows; a
+//   fixed tile is loaded as 64 / ROWS boxes a consumer.
 //
 // dk/dv, one block per (128 keys, batch, head, part of the query axis): K
-// and V of the block's keys are fixed; a stage holds 64 queries of Q and dO
-// (4-D TMA boxes) and their 64 lse and di values (1-D bulk copies on the
-// same barrier). Per query tile, each consumer warpgroup (64 keys):
+// and V of the block's keys are fixed; a stage holds ROWS queries of Q and
+// dO (4-D TMA boxes) and their ROWS lse and di values (1-D bulk copies on
+// the same barrier). Per query tile, each consumer warpgroup (64 keys):
 //   S^T = K Q^T, dP^T = V dO^T      wgmma SS, both operands K-major (the
 //                                   forward's S with K as A)
 //   P^T = 2^(S^T scale log2 e - lse log2 e), dS^T = P^T (dP^T - di), fp32
@@ -33,7 +38,7 @@
 // with several, as fp32 partial sums into the workspace (part p's dK at
 // p*n, its dV at (parts+p)*n, n = B*Lk*H*D), which flash_bwd.cu's
 // `flash_bwd_dkv_sum` adds in part order. Part p walks query tiles
-// [p*T/parts, (p+1)*T/parts) of the T = Lq/64 (ops/flash_tma.py::dkv_parts).
+// [p*T/parts, (p+1)*T/parts) of the T = Lq/ROWS (ops/flash_tma.py::dkv_parts).
 //
 // dq, one block per (128 queries, batch, head): Q, dO, lse and di of the
 // block's queries are fixed; a stage holds 64 keys of K and V. Per key tile,
@@ -54,10 +59,12 @@
 //
 // Shared memory, as in the forward: a tile is cut along the head dim into
 // NC chunks of CW = SW / 2 columns; a chunk of R rows is R rows of SW bytes
-// in the SW-byte swizzle (TMA's zero fill past D pads the head dim to NV).
-// A K-major operand's k-step kd lies in chunk kd*16/CW, (kd*16 % CW)*2
-// bytes in; an MN-major operand's k-step kk (16 rows) starts kk*16*SW bytes
-// in, its chunks (MN atoms) R*SW apart (LBO). One tile is read under both
+// in the SW-byte swizzle (TMA's zero fill past D pads the head dim to NV):
+// 128-byte swizzle at D=40 and 80, the forward's 64-byte swizzle and five
+// 32-column chunks at D=160 (ops/flash_tma.py::BWD_SWIZZLE). A K-major
+// operand's k-step kd lies in chunk kd*16/CW, (kd*16 % CW)*2 bytes in; an
+// MN-major operand's k-step kk (16 rows) starts kk*16*SW bytes in, its
+// chunks (MN atoms) R*SW apart (LBO). One tile is read under both
 // descriptors: Q and dO in dk/dv, K in dq.
 
 #pragma once
@@ -73,29 +80,30 @@ using namespace vx;
 
 constexpr int BWD_THREADS = 384;
 
-// the tiling and shared-memory layout of one instantiation with NS ring
-// stages, in bytes
-template <int D, int SW, int NS>
+// the tiling and shared-memory layout of one instantiation with ring tiles
+// of RT rows and NS ring stages, in bytes
+template <int D, int SW, int RT, int NS>
 struct BwdTile {
   static constexpr int CW = SW / 2;              // bf16 columns per chunk
   static constexpr int NV = (D + 15) / 16 * 16;  // head dim of the products
   static constexpr int NC = (NV + CW - 1) / CW;  // chunks per tile
   static constexpr int KS = NV / 16;             // k-steps over the head dim (S, dP)
-  // rows of a box, of a consumer warpgroup, of a ring tile: 4 k-steps of the
-  // RS products (pack_a, mn_descs)
-  static constexpr int ROWS = 64;
+  static constexpr int ROWS = RT;        // rows of a box and of a ring tile
+  static constexpr int KK = RT / 16;     // k-steps of the RS products over a ring tile
+  static constexpr int WG_ROWS = 64;     // keys (dk/dv) or queries (dq) of a consumer warpgroup
   static constexpr int BLOCK = 128;      // keys (dk/dv) or queries (dq) of a block
   static constexpr int STAGES = NS;
   // one block an SM: a block starts with 168 registers a thread, the
   // producer gives up its share (down to 24) and each consumer takes 240
   static constexpr int CONSUMER_REGS = 240;
-  static constexpr uint32_t BOX = ROWS * SW;         // one box: 64 rows of one chunk
-  static constexpr uint32_t FIX_CHUNK = BLOCK * SW;  // one chunk of a fixed tile
-  static constexpr uint32_t FIX = NC * FIX_CHUNK;    // one fixed tile (K, V or Q, dO)
-  static constexpr uint32_t RING = NC * BOX;         // one of a stage's two tiles
+  static constexpr uint32_t BOX = ROWS * SW;          // one box: ROWS rows of one chunk
+  static constexpr uint32_t WG_FIX = WG_ROWS * SW;    // a consumer's rows of a fixed chunk
+  static constexpr uint32_t FIX_CHUNK = BLOCK * SW;   // one chunk of a fixed tile
+  static constexpr uint32_t FIX = NC * FIX_CHUNK;     // one fixed tile (K, V or Q, dO)
+  static constexpr uint32_t RING = NC * BOX;          // one of a stage's two tiles
   static constexpr uint32_t RING_OFF = 2 * FIX;
   static constexpr uint32_t STATS_OFF = RING_OFF + 2 * STAGES * RING;
-  // lse and di: dk/dv 64 of each a stage, dq 128 of each once
+  // lse and di: dk/dv ROWS of each a stage, dq 128 of each once
   static constexpr uint32_t DKV_STATS = STAGES * 2 * ROWS * 4;
   static constexpr uint32_t DQ_STATS = 2 * BLOCK * 4;
   static constexpr uint32_t BAR_OFF =
@@ -104,23 +112,26 @@ struct BwdTile {
   // bytes (the 128-byte swizzle's period)
   static constexpr uint32_t SMEM = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
   static_assert(SW == 32 || SW == 64 || SW == 128, "swizzle span");
+  static_assert(RT == 32 || RT == 64, "ring tiles of 32 or 64 rows");
   static_assert(BOX % 1024 == 0, "boxes keep the swizzle's period");
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-// ring stages of each kernel: a fourth stage speeds dq up and not dk/dv
-// (measured on an H100, PERF.md §6; two stages are slower for both)
-constexpr int DKV_STAGES = 3, DQ_STAGES = 4;
+// ring tiles and stages of each kernel (ops/flash_tma.py::BWD_RING): 64-row
+// tiles, 3 stages for dk/dv and 4 for dq (a fourth speeds dq up and not
+// dk/dv, measured on an H100, PERF.md §6; two are slower for both); at D=160
+// dk/dv walks 32-query tiles in 4 stages and dq has 3 (a fourth of 40 KiB
+// does not fit beside its fixed Q and dO)
 template <int D, int SW>
-using DkvTile = BwdTile<D, SW, DKV_STAGES>;
+using DkvTile = BwdTile<D, SW, D == 160 ? 32 : 64, D == 160 ? 4 : 3>;
 template <int D, int SW>
-using DqTile = BwdTile<D, SW, DQ_STAGES>;
+using DqTile = BwdTile<D, SW, 64, D == 160 ? 3 : 4>;
 
-// 64 x 64 accumulator = A (64 rows at a_base, K-major) B^T (64 rows at
-// b_base, K-major) over the head dim; a_chunk and b_chunk are the two
-// tiles' chunk strides. Issued and committed as one group, not waited for.
-template <int D, int SW>
-__device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a_base, uint32_t a_chunk,
+// 64 x N accumulator = A (64 rows at a_base, K-major) B^T (N rows at b_base,
+// K-major) over the head dim; a_chunk and b_chunk are the two tiles' chunk
+// strides. Issued and committed as one group, not waited for.
+template <int D, int SW, int N>
+__device__ __forceinline__ void issue_ss(float (&d)[N / 2], uint32_t a_base, uint32_t a_chunk,
                                          uint32_t b_base, uint32_t b_chunk) {
   constexpr int CW = SW / 2, KS = (D + 15) / 16;  // BwdTile's
   uint64_t ad[KS], bd[KS];
@@ -136,15 +147,16 @@ __device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a_base, uint32
   wgmma_fence_operands(d);
   wgmma_fence();
 #pragma unroll
-  for (int kd = 0; kd < KS; ++kd) wgmma_ss_n64(d, ad[kd], bd[kd], kd);
+  for (int kd = 0; kd < KS; ++kd) wgmma_ss<N>(d, ad[kd], bd[kd], kd);
   wgmma_commit();
 }
 
-// the A fragments of a 64 x 64 accumulator taken as (64 rows, 64 k), bf16:
-// k-step kk is the accumulator's 8-column groups 2kk and 2kk+1
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&s)[32]) {
+// the A fragments of a 64 x 16KK accumulator taken as (64 rows, 16KK k),
+// bf16: k-step kk is the accumulator's 8-column groups 2kk and 2kk+1
+template <int KK>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KK][4], const float (&s)[8 * KK]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KK; ++kk) {
     a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
     a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -152,11 +164,13 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&s)[32]
   }
 }
 
-// the descriptors of a 64-row tile at `base` read MN-major, one per 16-row k-step
-template <int SW>
-__device__ __forceinline__ void mn_descs(uint64_t (&d)[4], uint32_t base) {
+// the descriptors of a 16KK-row tile at `base` read MN-major, one per 16-row
+// k-step; its chunks (MN atoms) lie 16KK*SW bytes apart
+template <int SW, int KK>
+__device__ __forceinline__ void mn_descs(uint64_t (&d)[KK], uint32_t base) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) d[kk] = wgmma_desc<SW>(base + kk * 16 * SW, 64 * SW, 8 * SW);
+  for (int kk = 0; kk < KK; ++kk)
+    d[kk] = wgmma_desc<SW>(base + kk * 16 * SW, KK * 16 * SW, 8 * SW);
 }
 
 // the block's barriers, initialised by thread 0: full[NS] (the producer's
@@ -184,30 +198,31 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 template <int D, int SW>
 struct DkvConsumer {
   using T = DkvTile<D, SW>;
-  static constexpr int NS = T::STAGES, NV = T::NV, ROWS = T::ROWS;
+  static constexpr int NS = T::STAGES, NV = T::NV, ROWS = T::ROWS, KK = T::KK;
+  static constexpr int SN = ROWS / 2;  // registers of S^T and of dP^T (64 keys x ROWS queries)
 
   uint32_t k_wg, v_wg, ring, bar;  // this warpgroup's K and V rows, the ring, the barriers
   const float* stats;              // lse and di of the stages
   int t, lane;
   float scale_log2;
   float dka[NV / 2], dva[NV / 2];
-  uint32_t pa[4][4], da[4][4];  // A fragments of P^T and dS^T, one per 16-query k-step
+  uint32_t pa[KK][4], da[KK][4];  // A fragments of P^T and dS^T, one per 16-query k-step
 
   // S^T = K Q^T and dP^T = V dO^T of tile `it`, once its stage has landed
-  __device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32], int it) {
+  __device__ __forceinline__ void issue_sdp(float (&s)[SN], float (&dp)[SN], int it) {
     const int st = it % NS;
     mbar_wait(bar + 8 * st, (it / NS) & 1);
     const uint32_t qt = ring + 2 * st * T::RING;
-    issue_ss<D, SW>(s, k_wg, T::FIX_CHUNK, qt, T::BOX);
-    issue_ss<D, SW>(dp, v_wg, T::FIX_CHUNK, qt + T::RING, T::BOX);
+    issue_ss<D, SW, ROWS>(s, k_wg, T::FIX_CHUNK, qt, T::BOX);
+    issue_ss<D, SW, ROWS>(dp, v_wg, T::FIX_CHUNK, qt + T::RING, T::BOX);
   }
 
   // P^T and dS^T of tile `it` in place; columns 8j+2t, 8j+2t+1 are its queries
-  __device__ __forceinline__ void p_ds(float (&s)[32], float (&dp)[32], int it) {
+  __device__ __forceinline__ void p_ds(float (&s)[SN], float (&dp)[SN], int it) {
     const float* lse_t = stats + (it % NS) * 2 * ROWS;
     const float* di_t = lse_t + ROWS;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < ROWS / 8; ++j) {
       const float2 l = *reinterpret_cast<const float2*>(lse_t + 8 * j + 2 * t);
       const float2 e = *reinterpret_cast<const float2*>(di_t + 8 * j + 2 * t);
       const float l0 = l.x * LOG2E, l1 = l.y * LOG2E;
@@ -224,7 +239,7 @@ struct DkvConsumer {
 
   // after the previous tile's dV/dK have completed: its stage goes back to
   // the producer, and P^T, dS^T of this tile fill pa, da
-  __device__ __forceinline__ void take(const float (&s)[32], const float (&dp)[32], int it) {
+  __device__ __forceinline__ void take(const float (&s)[SN], const float (&dp)[SN], int it) {
     wgmma_fence_operands(dka);
     wgmma_fence_operands(dva);
     wgmma_fence_operands(pa);
@@ -238,9 +253,9 @@ struct DkvConsumer {
   // dV += P^T dO and dK += dS^T Q of tile `it`, dO and Q read MN-major
   __device__ __forceinline__ void issue_rs(int it) {
     const uint32_t qt = ring + 2 * (it % NS) * T::RING;
-    uint64_t od[4], qd[4];
-    mn_descs<SW>(od, qt + T::RING);
-    mn_descs<SW>(qd, qt);
+    uint64_t od[KK], qd[KK];
+    mn_descs<SW, KK>(od, qt + T::RING);
+    mn_descs<SW, KK>(qd, qt);
     wgmma_fence_operands(od);
     wgmma_fence_operands(qd);
     wgmma_fence_operands(dva);
@@ -249,9 +264,9 @@ struct DkvConsumer {
     wgmma_fence_operands(da);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<NV>(dva, pa[kk], od[kk]);
+    for (int kk = 0; kk < KK; ++kk) wgmma_rs<NV>(dva, pa[kk], od[kk]);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<NV>(dka, da[kk], qd[kk]);
+    for (int kk = 0; kk < KK; ++kk) wgmma_rs<NV>(dka, da[kk], qd[kk]);
     wgmma_commit();
   }
 
@@ -259,7 +274,7 @@ struct DkvConsumer {
   // while the tile before's dV/dK do; then, with MORE (a tile follows), S^T
   // and dP^T of the next tile and dV/dK of this one run back to back.
   template <bool MORE>
-  __device__ __forceinline__ void step(float (&s)[32], float (&dp)[32], int it) {
+  __device__ __forceinline__ void step(float (&s)[SN], float (&dp)[SN], int it) {
     p_ds(s, dp, it);
     wgmma_wait<0>();
     take(s, dp, it);
@@ -279,27 +294,28 @@ struct DkvConsumer {
 template <int D, int SW>
 struct DqConsumer {
   using T = DqTile<D, SW>;
-  static constexpr int NS = T::STAGES, NV = T::NV;
+  static constexpr int NS = T::STAGES, NV = T::NV, KK = T::KK;
+  static constexpr int SN = T::ROWS / 2;  // registers of S and of dP (64 queries x 64 keys)
 
   uint32_t q_wg, do_wg, ring, bar;  // this warpgroup's Q and dO rows, the ring, the barriers
   int lane;
   float scale_log2, l0, l1, d0, d1;  // lse (log2 units) and di of rows g and g+8
   float dqa[NV / 2];
-  uint32_t da[4][4];  // A fragments of dS, one per 16-key k-step
+  uint32_t da[KK][4];  // A fragments of dS, one per 16-key k-step
 
   // S = Q K^T and dP = dO V^T of tile `it`, once its stage has landed
-  __device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32], int it) {
+  __device__ __forceinline__ void issue_sdp(float (&s)[SN], float (&dp)[SN], int it) {
     const int st = it % NS;
     mbar_wait(bar + 8 * st, (it / NS) & 1);
     const uint32_t kt = ring + 2 * st * T::RING;
-    issue_ss<D, SW>(s, q_wg, T::FIX_CHUNK, kt, T::BOX);
-    issue_ss<D, SW>(dp, do_wg, T::FIX_CHUNK, kt + T::RING, T::BOX);
+    issue_ss<D, SW, T::ROWS>(s, q_wg, T::FIX_CHUNK, kt, T::BOX);
+    issue_ss<D, SW, T::ROWS>(dp, do_wg, T::FIX_CHUNK, kt + T::RING, T::BOX);
   }
 
   // dS in place of dP; rows g (s[4j], s[4j+1]) and g+8 (s[4j+2], s[4j+3])
-  __device__ __forceinline__ void p_ds(const float (&s)[32], float (&dp)[32]) {
+  __device__ __forceinline__ void p_ds(const float (&s)[SN], float (&dp)[SN]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < T::ROWS / 8; ++j) {
       dp[4 * j] = ex2_approx(fmaf(s[4 * j], scale_log2, -l0)) * (dp[4 * j] - d0);
       dp[4 * j + 1] = ex2_approx(fmaf(s[4 * j + 1], scale_log2, -l0)) * (dp[4 * j + 1] - d0);
       dp[4 * j + 2] = ex2_approx(fmaf(s[4 * j + 2], scale_log2, -l1)) * (dp[4 * j + 2] - d1);
@@ -309,7 +325,7 @@ struct DqConsumer {
 
   // after the previous tile's dQ product has completed: its stage goes back
   // to the producer, and dS of this tile fills da
-  __device__ __forceinline__ void take(const float (&dp)[32], int it) {
+  __device__ __forceinline__ void take(const float (&dp)[SN], int it) {
     wgmma_fence_operands(dqa);
     wgmma_fence_operands(da);
     __syncwarp();
@@ -319,20 +335,20 @@ struct DqConsumer {
 
   // dQ += dS K of tile `it`, K read MN-major
   __device__ __forceinline__ void issue_rs(int it) {
-    uint64_t kd[4];
-    mn_descs<SW>(kd, ring + 2 * (it % NS) * T::RING);
+    uint64_t kd[KK];
+    mn_descs<SW, KK>(kd, ring + 2 * (it % NS) * T::RING);
     wgmma_fence_operands(kd);
     wgmma_fence_operands(dqa);
     wgmma_fence_operands(da);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<NV>(dqa, da[kk], kd[kk]);
+    for (int kk = 0; kk < KK; ++kk) wgmma_rs<NV>(dqa, da[kk], kd[kk]);
     wgmma_commit();
   }
 
   // as DkvConsumer::step
   template <bool MORE>
-  __device__ __forceinline__ void step(float (&s)[32], float (&dp)[32], int it) {
+  __device__ __forceinline__ void step(float (&s)[SN], float (&dp)[SN], int it) {
     p_ds(s, dp);
     wgmma_wait<0>();
     take(dp, it);
@@ -350,7 +366,7 @@ struct DqConsumer {
 // one peeled so that every wait count is fixed; returns with every product done.
 template <typename C>
 __device__ __forceinline__ void consume(C& c, int n_tiles) {
-  float s[32], dp[32];
+  float s[C::SN], dp[C::SN];
   c.issue_sdp(s, dp, 0);
   wgmma_wait<0>();
   wgmma_fence_operands(s);
@@ -372,6 +388,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     float* __restrict__ ws, int H, int Lq, int Lk, float scale, float scale_log2) {
   using T = DkvTile<D, SW>;
   constexpr int CW = T::CW, NV = T::NV, NC = T::NC, NS = T::STAGES, ROWS = T::ROWS;
+  constexpr int WG_ROWS = T::WG_ROWS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t k_s = smem_u32(smem), v_s = k_s + T::FIX, ring = k_s + T::RING_OFF;
@@ -382,7 +399,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
   const int parts = gridDim.z, part = blockIdx.z, q_tiles = Lq / ROWS;
   const int t0 = (int)((long long)part * q_tiles / parts);
   const int n_tiles = (int)((long long)(part + 1) * q_tiles / parts) - t0;
-  const int consumers = min(2, (Lk - k0) / ROWS);  // warpgroups whose keys lie below Lk
+  const int consumers = min(2, (Lk - k0) / WG_ROWS);  // warpgroups whose keys lie below Lk
   const int wg = threadIdx.x >> 7;
 
   init_barriers(bar, NS, consumers);
@@ -391,10 +408,10 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(fix_bar, 2 * consumers * T::RING);
+      mbar_expect_tx(fix_bar, 2 * consumers * NC * T::WG_FIX);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        for (int r = 0; r < consumers; ++r) {
+        for (int r = 0; r < consumers * (WG_ROWS / ROWS); ++r) {  // boxes below Lk
           const uint32_t off = c * T::FIX_CHUNK + r * T::BOX;
           tma_load_4d(k_s + off, &tk, fix_bar, c * CW, h, k0 + r * ROWS, b);
           tma_load_4d(v_s + off, &tv, fix_bar, c * CW, h, k0 + r * ROWS, b);
@@ -423,8 +440,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     DkvConsumer<D, SW> c;
-    c.k_wg = k_s + wg * ROWS * SW;  // this warpgroup's 64 keys of each chunk
-    c.v_wg = v_s + wg * ROWS * SW;
+    c.k_wg = k_s + wg * T::WG_FIX;  // this warpgroup's 64 keys of each chunk
+    c.v_wg = v_s + wg * T::WG_FIX;
     c.ring = ring;
     c.bar = bar;
     c.stats = reinterpret_cast<const float*>(smem + T::STATS_OFF);
@@ -440,7 +457,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
     const float(&dka)[NV / 2] = c.dka, (&dva)[NV / 2] = c.dva;
 
     // keys r0 and r0 + 8 of this thread, both below Lk; columns < D only
-    const int r0 = k0 + wg * ROWS + warp * 16 + g;
+    const int r0 = k0 + wg * WG_ROWS + warp * 16 + g;
     const long long ld = (long long)H * D;
     const long long o0 = ((long long)b * Lk + r0) * ld + h * D, o1 = o0 + 8 * ld;
     if (parts == 1) {
@@ -486,6 +503,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
                    float scale_log2) {
   using T = DqTile<D, SW>;
   constexpr int CW = T::CW, NV = T::NV, NC = T::NC, NS = T::STAGES, ROWS = T::ROWS;
+  constexpr int WG_ROWS = T::WG_ROWS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t q_s = smem_u32(smem), do_s = q_s + T::FIX, ring = q_s + T::RING_OFF;
@@ -494,7 +512,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * T::BLOCK;
   const int n_tiles = Lk / ROWS;
-  const int consumers = min(2, (Lq - q0) / ROWS);  // warpgroups whose queries lie below Lq
+  const int consumers = min(2, (Lq - q0) / WG_ROWS);  // warpgroups whose queries lie below Lq
   const int wg = threadIdx.x >> 7;
 
   init_barriers(bar, NS, consumers);
@@ -503,11 +521,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
-      const uint32_t stat_bytes = consumers * ROWS * 4;
-      mbar_expect_tx(fix_bar, 2 * consumers * T::RING + 2 * stat_bytes);
+      const uint32_t stat_bytes = consumers * WG_ROWS * 4;
+      mbar_expect_tx(fix_bar, 2 * consumers * NC * T::WG_FIX + 2 * stat_bytes);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        for (int r = 0; r < consumers; ++r) {
+        for (int r = 0; r < consumers * (WG_ROWS / ROWS); ++r) {  // boxes below Lq
           const uint32_t off = c * T::FIX_CHUNK + r * T::BOX;
           tma_load_4d(q_s + off, &tq, fix_bar, c * CW, h, q0 + r * ROWS, b);
           tma_load_4d(do_s + off, &tdo, fix_bar, c * CW, h, q0 + r * ROWS, b);
@@ -533,8 +551,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     DqConsumer<D, SW> c;
-    c.q_wg = q_s + wg * ROWS * SW;  // this warpgroup's 64 queries of each chunk
-    c.do_wg = do_s + wg * ROWS * SW;
+    c.q_wg = q_s + wg * T::WG_FIX;  // this warpgroup's 64 queries of each chunk
+    c.do_wg = do_s + wg * T::WG_FIX;
     c.ring = ring;
     c.bar = bar;
     c.lane = lane;
@@ -542,7 +560,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
 #pragma unroll
     for (int i = 0; i < NV / 2; ++i) c.dqa[i] = 0.f;
     mbar_wait(fix_bar, 0);
-    const int row = wg * ROWS + warp * 16 + g;
+    const int row = wg * WG_ROWS + warp * 16 + g;
     const float* stats_f = reinterpret_cast<const float*>(smem + T::STATS_OFF);
     c.l0 = stats_f[row] * LOG2E;
     c.l1 = stats_f[row + 8] * LOG2E;

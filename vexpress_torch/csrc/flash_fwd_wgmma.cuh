@@ -112,17 +112,6 @@ struct FwdArgs {
   long long o_b, o_h, o_l;  // element strides of o: batch, head, row
 };
 
-// S = Q K^T over one 16-deep k-step, BK keys
-template <int BK>
-__device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (BK == 128) {
-    wgmma_ss_n128(d, a, b, scale_d);
-  } else {
-    static_assert(BK == 64, "key tiles of 64 or 128");
-    wgmma_ss_n64(d, a, b, scale_d);
-  }
-}
-
 // 2^x of a bf16 pair, each result rounded to bf16
 __device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
   uint32_t y;
@@ -215,7 +204,7 @@ struct WgConsumer {
     wgmma_fence_operands(s);
     wgmma_fence();
 #pragma unroll
-    for (int kd = 0; kd < T::KS; ++kd) wgmma_qk<BK>(s, qd[kd], kd_[kd], kd);
+    for (int kd = 0; kd < T::KS; ++kd) wgmma_ss<BK>(s, qd[kd], kd_[kd], kd);
     wgmma_commit();
   }
 

@@ -112,6 +112,17 @@ __device__ __forceinline__ void wgmma_fence_operands(uint32_t (&d)[N][4]) {
 // d[4j+3] = row 16w+g+8, the same columns. The A fragment in registers is
 // mma.sync m16n8k16's (flash_common.cuh) for rows 16w..16w+15.
 
+// d (64 x 32) = (scale_d ? d : 0) + A (64 x 16) B^T (B 32 x 16), A and B K-major in smem
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : VX_F8(0), VX_F8(8)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 64) = (scale_d ? d : 0) + A (64 x 16) B^T (B 64 x 16), A and B K-major in smem
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
@@ -204,6 +215,20 @@ __device__ __forceinline__ void wgmma_rs_n160(float (&d)[80], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 #undef VX_F8
+
+// d (64 x N) = (scale_d ? d : 0) + A (64 x 16) B^T (B N x 16) over one
+// 16-deep k-step, both K-major in smem
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, a, b, scale_d);
+  } else if constexpr (N == 64) {
+    wgmma_ss_n64(d, a, b, scale_d);
+  } else {
+    static_assert(N == 128, "SS product widths 32, 64, 128");
+    wgmma_ss_n128(d, a, b, scale_d);
+  }
+}
 
 // acc (64 x NV) += A (64 x 16 from registers) B (16 x NV, MN-major in smem)
 // over one 16-deep k-step, at the head dim NV of the products

@@ -5,9 +5,9 @@ library's Pallas TPU flash-attention kernel (and, under a gradient, its two
 backward kernels). Here the kernels are `csrc/flash_fwd.cu` (forward, with an
 optional log-sum-exp output: bf16 through TMA and wgmma,
 `csrc/flash_fwd_wgmma.cuh`, with its host-side geometry in `flash_tma.py`;
-fp32 scalar) and `csrc/flash_bwd.cu` (dk/dv and dq: bf16 at D=40 and 80
-through TMA and wgmma, `csrc/flash_bwd_wgmma.cuh`, with its host geometry in
-`flash_tma.py` too), CUDA C++ for sm_90a,
+fp32 scalar) and `csrc/flash_bwd.cu` (dk/dv and dq: bf16 through TMA and
+wgmma, `csrc/flash_bwd_wgmma.cuh`, with its host geometry in `flash_tma.py`
+too; fp32 scalar), CUDA C++ for sm_90a,
 built by nvcc into one plain-C shared library under `vexpress_torch/_build/`
 at first use and called through ctypes. The same library holds the
 attention-variant bench's kernels T1 and T2 (`ops/flash_variants.py`,
@@ -127,10 +127,10 @@ def _library():
             lib.vx_flash_fwd_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                              ll, ll, ll, ll, ll, ll, ll, ll, f, p]
             lib.vx_flash_fwd_f32.restype = i
-            lib.vx_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
-            lib.vx_flash_bwd_dkv.restype = i
-            lib.vx_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, p]
-            lib.vx_flash_bwd_dq.restype = i
+            lib.vx_flash_bwd_dkv_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
+            lib.vx_flash_bwd_dkv_f32.restype = i
+            lib.vx_flash_bwd_dq_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
+            lib.vx_flash_bwd_dq_f32.restype = i
             lib.vx_flash_bwd_dkv_tma.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
             lib.vx_flash_bwd_dkv_tma.restype = i
             lib.vx_flash_bwd_dq_tma.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
@@ -277,10 +277,6 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _dtype_code(t: torch.Tensor) -> int:
-    return 1 if t.dtype == torch.bfloat16 else 0
-
-
 _tiles_checked = set()
 _bwd_tiles_checked = set()
 
@@ -395,11 +391,11 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tens
                need_dq: bool = True, need_dkv: bool = True):
     """csrc/flash_bwd.cu on the current stream: the dk/dv kernel when
     `need_dkv`, the dq kernel when `need_dq`; returns (dq, dk, dv) with None
-    for a gradient not asked for. CUDA tensors only. bf16 at D=40 and 80
-    runs the TMA/wgmma kernels (csrc/flash_bwd_wgmma.cuh; where the dk/dv
-    kernel splits the query axis, its fp32 workspace is allocated here and
-    `flash_bwd_dkv_sum` adds the parts, counted as its own launch); bf16 at
-    D=160 and fp32 the mma.sync and scalar kernels."""
+    for a gradient not asked for. CUDA tensors only. bf16, at every head dim
+    (40, 80, 160), runs the TMA/wgmma kernels (csrc/flash_bwd_wgmma.cuh;
+    where the dk/dv kernel splits the query axis, its fp32 workspace is
+    allocated here and `flash_bwd_dkv_sum` adds the parts, counted as its
+    own launch); fp32 runs the scalar kernels."""
     _check_kernel_inputs(heads, q=q, k=k, v=v, do=do)
     b, lq, inner = q.shape
     lk, d = k.shape[1], inner // heads
@@ -409,7 +405,7 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tens
             raise ValueError(f"flash backward needs a contiguous 16-byte aligned fp32 {name} of "
                              f"shape {(b, heads, lq)} on {q.device}, got {tuple(t.shape)} "
                              f"{t.dtype}")
-    tma = q.dtype == torch.bfloat16 and d in flash_tma.BWD_SWIZZLE
+    tma = q.dtype == torch.bfloat16
     geoms = {kernel: _bwd_tma_geometry(b, lq, lk, heads, d, kernel)
              for kernel, need in (("dkv", need_dkv), ("dq", need_dq)) if tma and need}
     lib = _library()
@@ -438,8 +434,8 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tens
                                               None if ws is None else ws.data_ptr(), b, heads,
                                               lq, lk, d, geom, float(scale), stream)
             else:
-                rc = lib.vx_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), _dtype_code(q), b,
-                                          heads, lq, lk, d, strides, float(scale), stream)
+                rc = lib.vx_flash_bwd_dkv_f32(*args, dk.data_ptr(), dv.data_ptr(), b, heads, lq,
+                                              lk, d, strides, float(scale), stream)
             _raise_on(rc, "backward dk/dv")
             counts["flash_bwd_dkv"] += 1
             shapes[("flash_bwd_dkv", b, lq, lk, d)] += 1
@@ -450,8 +446,8 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tens
                 rc = lib.vx_flash_bwd_dq_tma(*args, dq.data_ptr(), b, heads, lq, lk, d,
                                              geoms["dq"][0], float(scale), stream)
             else:
-                rc = lib.vx_flash_bwd_dq(*args, dq.data_ptr(), _dtype_code(q), b, heads, lq, lk,
-                                         d, strides, float(scale), stream)
+                rc = lib.vx_flash_bwd_dq_f32(*args, dq.data_ptr(), b, heads, lq, lk, d, strides,
+                                             float(scale), stream)
             _raise_on(rc, "backward dq")
             counts["flash_bwd_dq"] += 1
             shapes[("flash_bwd_dq", b, lq, lk, d)] += 1

@@ -22,12 +22,13 @@ packed (B, L, H*D) one, so the byte strides always rise with the dimension;
 by it. `variant_tile` is what the library reports through
 `vx_flash_fwd_variant_tile` and `vx_splash_mha_tile`.
 
-The backward's kernels (csrc/flash_bwd_wgmma.cuh, bf16 at D=40 and 80) read
-the same 4-D views in boxes of 64 rows (`bwd_geometry`), with the tiling
-`bwd_tile` that csrc/flash_bwd_wgmma.cuh's BwdTile sets and
-`vx_flash_bwd_tile` reports; `dkv_splits` chooses how many parts the dk/dv
-kernel cuts the query axis into, and `dkv_parts` which query tiles each part
-walks, as the kernel computes them.
+The backward's kernels (csrc/flash_bwd_wgmma.cuh, bf16 at D=40, 80 and 160)
+read the same 4-D views in boxes of their ring tiles' rows (`bwd_geometry`:
+64, or 32 queries for dk/dv at D=160), with the tiling `bwd_tile` that
+csrc/flash_bwd_wgmma.cuh's BwdTile sets and `vx_flash_bwd_tile` reports;
+`dkv_splits` chooses how many parts the dk/dv kernel cuts the query axis
+into, and `dkv_parts` which query tiles each part walks, as the kernel
+computes them.
 """
 
 from __future__ import annotations
@@ -157,11 +158,11 @@ def tma_violations(geom: dict) -> List[str]:
         if (b * h) % hb:
             bad.append(f"B*H={b * h} not whole blocks of {hb} (batch, head) pairs")
     elif geom["kernel"] != "fwd":
-        walked = geom["q"]["dims"][2] // BWD_ROWS  # query tiles the dk/dv parts share
+        walked = geom["q"]["dims"][2] // BWD_WG_ROWS  # 64-row query tiles the dk/dv parts share
         if not 1 <= geom["grid"][2] <= (walked if geom["kernel"] == "dkv" else 1):
             bad.append(f"{geom['grid'][2]} parts of {walked} query tiles")
-        if any(m["dims"][2] % BWD_ROWS for m in (geom["q"], geom["kv"])):
-            bad.append(f"rows not whole {BWD_ROWS}-row tiles")
+        if any(m["dims"][2] % BWD_WG_ROWS for m in (geom["q"], geom["kv"])):
+            bad.append(f"rows not whole {BWD_WG_ROWS}-row tiles")
     return bad
 
 
@@ -259,28 +260,37 @@ def variant_geometry_arg(geom: dict):
 
 # ------------------------------------------------------------------ backward
 # swizzle span by head dim of the backward's instantiations (csrc/flash_bwd.cu's
-# VX_BWD_WGMMA): the forward's layout at D=40 and 80. D=160 runs the mma.sync
-# kernels, through no TMA geometry.
-BWD_SWIZZLE = {40: 128, 80: 128}
-BWD_ROWS = 64  # rows of a box, of a consumer warpgroup and of a ring tile
+# VX_BWD_WGMMA): the forward's layout at every head dim
+BWD_SWIZZLE = {40: 128, 80: 128, 160: 64}
+BWD_WG_ROWS = 64  # keys (dk/dv) or queries (dq) of a consumer warpgroup
 BWD_BLOCK = 128  # keys (dk/dv) or queries (dq) of a block: two consumer warpgroups
-# ring stages of each backward kernel (flash_bwd_wgmma.cuh's DKV_STAGES,
-# DQ_STAGES): a fourth speeds dq up and not dk/dv (PERF.md §6)
-BWD_STAGES = {"dkv": 3, "dq": 4}
+# (rows of a ring tile and of every box, ring stages) of each backward kernel
+# by head dim (flash_bwd_wgmma.cuh's DkvTile, DqTile): 64-row tiles, a fourth
+# stage speeds dq up and not dk/dv (PERF.md §6); at D=160 dk/dv walks
+# 32-query tiles (a consumer's dK and dV take 160 registers, so S^T and dP^T
+# get 16 each) in 4 stages, and dq keeps 3 (a fourth of 40 KiB does not fit)
+BWD_RING = {"dkv": {40: (64, 3), 80: (64, 3), 160: (32, 4)},
+            "dq": {40: (64, 4), 80: (64, 4), 160: (64, 3)}}
 N_SMS = 132  # SMs of an H100 SXM: the dk/dv kernel's parts fill one wave of blocks
 # what `bwd_tile` returns, in the order of csrc/flash_bwd.cu::vx_flash_bwd_tile
-BWD_TILE_FIELDS = ("swizzle", "box_cols", "box_rows", "block_rows", "dkv_stages", "dq_stages",
-                   "dkv_smem", "dq_smem", "threads")
+BWD_TILE_FIELDS = ("swizzle", "box_cols", "dkv_rows", "dq_rows", "block_rows", "dkv_stages",
+                   "dq_stages", "dkv_smem", "dq_smem", "threads")
 
 
-def bwd_smem_bytes(d: int, swizzle: int, stages: int) -> int:
+def bwd_ring(d: int, kernel: str) -> tuple:
+    """(ring tile rows, stages) of `kernel` ("dkv" or "dq") at head dim d;
+    a head dim with no instantiation gets D=40's."""
+    return BWD_RING[kernel].get(d, BWD_RING[kernel][40])
+
+
+def bwd_smem_bytes(d: int, swizzle: int, rows: int, stages: int) -> int:
     """Dynamic shared memory of one backward block (BwdTile::SMEM): two fixed
-    128-row tiles, `stages` stages of two 64-row tiles, the lse and di
+    128-row tiles, `stages` stages of two `rows`-row tiles, the lse and di
     values, the mbarriers and 1024 bytes of alignment slack."""
     chunks = -(-padded_head_dim(d) // (swizzle // 2))
     fixed = chunks * BWD_BLOCK * swizzle
-    ring = chunks * BWD_ROWS * swizzle
-    stats = max(stages * 2 * BWD_ROWS * 4, 2 * BWD_BLOCK * 4)
+    ring = chunks * rows * swizzle
+    stats = max(stages * 2 * rows * 4, 2 * BWD_BLOCK * 4)
     return 2 * fixed + 2 * stages * ring + stats + 8 * (2 * stages + 1) + 1024
 
 
@@ -289,10 +299,11 @@ def bwd_tile(d: int) -> dict:
     (one block an SM; a head dim with no instantiation gets 128-byte
     swizzle, which `tma_violations` then names)."""
     sw = BWD_SWIZZLE.get(d, 128)
-    return dict(swizzle=sw, box_cols=sw // 2, box_rows=BWD_ROWS, block_rows=BWD_BLOCK,
-                dkv_stages=BWD_STAGES["dkv"], dq_stages=BWD_STAGES["dq"],
-                dkv_smem=bwd_smem_bytes(d, sw, BWD_STAGES["dkv"]),
-                dq_smem=bwd_smem_bytes(d, sw, BWD_STAGES["dq"]), threads=THREADS)
+    (kv_rows, kv_stages), (q_rows, q_stages) = bwd_ring(d, "dkv"), bwd_ring(d, "dq")
+    return dict(swizzle=sw, box_cols=sw // 2, dkv_rows=kv_rows, dq_rows=q_rows,
+                block_rows=BWD_BLOCK, dkv_stages=kv_stages, dq_stages=q_stages,
+                dkv_smem=bwd_smem_bytes(d, sw, kv_rows, kv_stages),
+                dq_smem=bwd_smem_bytes(d, sw, q_rows, q_stages), threads=THREADS)
 
 
 def dkv_splits(b: int, heads: int, lq: int, lk: int) -> int:
@@ -302,34 +313,34 @@ def dkv_splits(b: int, heads: int, lq: int, lk: int) -> int:
     tiles. Depends on the shape alone, so a shape's sum is always taken in
     the same order."""
     blocks = b * heads * -(-lk // BWD_BLOCK)
-    return max(1, min(N_SMS // blocks, lq // BWD_ROWS))
+    return max(1, min(N_SMS // blocks, lq // BWD_WG_ROWS))
 
 
-def dkv_parts(lq: int, parts: int) -> List[tuple]:
-    """[start, end) query tiles (64 rows each) that each part walks, as the
-    dk/dv kernel computes them: part p from p*T//parts to (p+1)*T//parts of
-    the T = Lq/64 tiles."""
-    tiles = lq // BWD_ROWS
+def dkv_parts(lq: int, parts: int, rows: int) -> List[tuple]:
+    """[start, end) query tiles (`rows` rows each, the dk/dv kernel's ring
+    tiles) that each part walks, as the dk/dv kernel computes them: part p
+    from p*T//parts to (p+1)*T//parts of the T = Lq/rows tiles."""
+    tiles = lq // rows
     return [(p * tiles // parts, (p + 1) * tiles // parts) for p in range(parts)]
 
 
 def bwd_geometry(b: int, lq: int, lk: int, heads: int, d: int, kernel: str) -> dict:
     """Everything the host sets for one launch of the backward's `kernel`
-    ("dkv" or "dq"): the maps of q (and dO) and k (and v) with 64-row boxes,
-    the grid (blocks along Lk for dk/dv and along Lq for dq, B*H, parts of
-    the query axis), the shared memory."""
+    ("dkv" or "dq"): the maps of q (and dO) and k (and v) with boxes of the
+    kernel's ring-tile rows, the grid (blocks along Lk for dk/dv and along Lq
+    for dq, B*H, parts of the query axis), the shared memory."""
     if kernel not in ("dkv", "dq"):
         raise ValueError(f"backward kernel {kernel!r}: 'dkv' or 'dq'")
     t = bwd_tile(d)
-    sw, cw = t["swizzle"], t["box_cols"]
+    sw, cw, rows = t["swizzle"], t["box_cols"], t[f"{kernel}_rows"]
     nv = padded_head_dim(d)
     chunks = -(-nv // cw)
     blocks_along = lk if kernel == "dkv" else lq
     parts = dkv_splits(b, heads, lq, lk) if kernel == "dkv" else 1
     return dict(kernel=kernel, swizzle=sw, head_dim=d, padded_head_dim=nv, chunks=chunks,
                 smem_head_dim=chunks * cw,
-                q=_tensor_map(b, lq, heads, d, BWD_ROWS, sw),
-                kv=_tensor_map(b, lk, heads, d, BWD_ROWS, sw),
+                q=_tensor_map(b, lq, heads, d, rows, sw),
+                kv=_tensor_map(b, lk, heads, d, rows, sw),
                 grid=(-(-blocks_along // BWD_BLOCK), b * heads, parts), threads=THREADS,
                 smem=t[f"{kernel}_smem"], blocks_per_sm=1)
 

@@ -18,15 +18,29 @@ import torch.nn.functional as F
 from ..utils.media_native import mux_audio_video, native_available
 
 
+def reflect_index(n: int, pad: int) -> torch.Tensor:
+    """Indices [-pad, n + pad) of an axis of length n reflected at both ends
+    (numpy's and jnp.pad's "reflect": the edge is not repeated; an axis of
+    one element repeats it)."""
+    i = torch.arange(-pad, n + pad).abs()
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    i = i % period
+    return torch.where(i >= n, period - i, i)
+
+
 def median_filter_3d(video: torch.Tensor, kernel_size: int = 3,
                      frame_chunk: int = 4) -> torch.Tensor:
     """3-D median over (F, H, W, C), reflect padding in frames and space;
-    `frame_chunk` output frames at a time bound the k^3-patch stack."""
+    `frame_chunk` output frames at a time bound the k^3-patch stack. The
+    frame axis is reflected through an index vector, as `jnp.pad` reflects
+    it, so a clip of any length (one frame too) is filtered."""
     k = kernel_size
     pad = k // 2
     f, h, w, c = video.shape
-    v = video.permute(3, 0, 1, 2)[None]  # (1, C, F, H, W)
-    v = F.pad(v, (pad, pad, pad, pad, pad, pad), mode="reflect")[0].permute(1, 0, 2, 3)
+    v = video.permute(0, 3, 1, 2)[reflect_index(f, pad).to(video.device)]  # (F+2p, C, H, W)
+    v = F.pad(v, (pad, pad, pad, pad), mode="reflect")
     outs = []
     for s in range(0, f, frame_chunk):
         n = min(frame_chunk, f - s)

@@ -1,5 +1,6 @@
 """Times K1's backward on the card at chip_smoke.py's training shapes (stage
-2, then stage 3) by chip_smoke.py's own `bwd_kernel_times`: the dk/dv
+2, then stage 3, then the D=160 rows: 1024x1024's and the bf16 row at batch
+2) by chip_smoke.py's own `bwd_kernel_times`: the dk/dv
 kernel, the dq kernel, the plain di reduction (`flash.bwd_di`) and, as a
 yardstick, SDPA's backward alone from one saved forward, each beside its
 bound. CUDA events, bf16, seeded inputs.
@@ -45,7 +46,9 @@ def main() -> list:
     print(cs.card_line(), f"kernels from {pathlib.Path(flash.__file__).resolve().parents[2]}",
           flush=True)
     rows = []
-    for stage, shapes in ((2, cs.TRAIN_K1_SHAPES), (3, cs.STAGE3_K1_SHAPES)):
+    d160 = cs.HIRES_K1_SHAPES + [row[:6] for row in cs.TRAIN_K1_EXTRA if row[6] == "bfloat16"]
+    for group, shapes in (("stage 2", cs.TRAIN_K1_SHAPES), ("stage 3", cs.STAGE3_K1_SHAPES),
+                          ("D=160", d160)):
         for name, b, lq, lk, inner, heads in shapes:
             d = inner // heads
             q, k, v, do = (torch.randn(b, n, inner, generator=gen, device=dev).to(torch.bfloat16)
@@ -53,7 +56,7 @@ def main() -> list:
             out, lse = flash.flash_sdpa_fwd(q, k, v, heads, d**-0.5)
             times = cs.bwd_kernel_times(torch, q, k, v, do, out, lse, heads)
             bounds = cs.k1_grad_bounds(b, lq, lk, inner, heads, 2, cs.PEAK_BF16)
-            row = dict(stage=stage, shape=name, B=b, Lq=lq, Lk=lk, H=heads, D=d, **times,
+            row = dict(group=group, shape=name, B=b, Lq=lq, Lk=lk, H=heads, D=d, **times,
                        dkv_bound_ms=bounds["dkv"][0], dq_bound_ms=bounds["dq"][0])
             rows.append(row)
             print(f"{name} B={b} Lq={lq} Lk={lk} D={d}: dk/dv {row['dkv_ms']:.3f} ms (bound "
