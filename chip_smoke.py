@@ -6,13 +6,15 @@
 Phases, in order; any failure raises and the script exits non-zero:
   card          the card's name and power limit (nvidia-smi)
   build         nvcc builds every kernel from the sources in the checkout
-  sass          the bf16 wgmma kernels' SASS (K1's and K2's forward, T1's,
-                T2's, the backward pair) holds HGMMA (wgmma), UTMALDG (TMA
-                loads) and MUFU.EX2, and no more wgmma waits than its code
+  sass          the wgmma kernels' SASS (K1's and K2's forward in bf16 and in
+                fp32, T1's, T2's, the backward pair) holds HGMMA (wgmma; on
+                TF32 in the fp32 kernels), UTMALDG (TMA loads) and MUFU.EX2,
+                and no more wgmma waits than its code
   kernel        each kernel at the main paths' shapes against its plain
                 version: K1's forward and K2 (VEXPRESS_FLASH_LITE's bf16-exp
                 forward, also against exact fp32 attention) at the inference
-                shapes, window_group 1 and 2, and in fp32 at the first four;
+                shapes, window_group 1 and 2, and in fp32 (3xTF32) at the
+                first four and at D=160;
                 at the training shapes of stage 2 and stage 3, at 512x512
                 and at 1024x1024's D=160 level, K1 with its gradient
                 (forward with log-sum-exp, dk/dv and dq kernels) through
@@ -117,6 +119,14 @@ import time
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 N_SMS, EX2_PER_CLK = 132, 16  # H100 SXM: SMs, ex2 results a clock on one SM (MUFU)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s
+# fp32-level products on the tensor cores: the fp32 kernels' bound. K1's fp32
+# forward takes each product as three TF32 products (3xTF32); K2's, whose p
+# is bf16-valued, takes S's as three and P V's as two, 2.5 on average. The
+# fp32 backward is scalar, but its rows are bound at the same rate, the least
+# time its redesign could reach.
+PEAK_3XTF32 = PEAK_TF32 / 3
+PEAK_K2_TF32 = PEAK_TF32 / 2.5
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 FULL_STEPS = 25  # the reference's DDIM step count; the full phase takes ~20 s on an H100
 
@@ -140,10 +150,12 @@ K1_G2_SHAPES = [
     ("g2 attn1_5@32x32 grouped", 1, 48 * 1024, 1024, 640, 8),
 ]
 # checks off the main path: fp32 (the parity phase's type, and the inference
-# CLI's --dtype fp32 at the main path's four shapes) and D=160
+# CLI's --dtype fp32 at the main path's four shapes) and D=160 (1024x1024's
+# third level; in fp32 under --dtype fp32)
 K1_EXTRA = [
     ("fp32 attn1@32x32", 2, 1024, 1024, 640, 8, "float32"),
     ("bf16 D=160", 2, 1024, 1024, 1280, 8, "bfloat16"),
+    ("fp32 D=160", 2, 1024, 1024, 1280, 8, "float32"),
 ] + [("fp32 " + n, b, lq, lk, i, h, "float32") for n, b, lq, lk, i, h in K1_SHAPES[:4]]
 
 
@@ -279,36 +291,41 @@ def exp_floor_ms(exps: float, clock_mhz: float) -> float:
 # T1's and T2's kernels run the forward's code (one block walks its pairs in
 # a loop that is not unrolled), so theirs are the forward's 5 too.
 WGMMA_WAITS = 5
-# kernels of each bf16 wgmma family in the library (a part of their mangled
-# names): K1 and K2 at 3 head dims, T1's 9 and T2's 3 tilings, the backward
-# pair at D=40, 80 and 160; each with at most WGMMA_WAITS fixed waits
-SASS_FAMILIES = {"flash_fwd_wgmma": 6, "flash_fwd_variant_wgmma": 9, "splash_fwd_wgmma": 3,
-                 "flash_bwd_dkv_wgmma": 3, "flash_bwd_dq_wgmma": 3}
+# kernels of each wgmma family in the library (a part of their mangled
+# names): K1 and K2 at 3 head dims in bf16 and in fp32 (flash_fwd_tf32, every
+# HGMMA on TF32), T1's 9 and T2's 3 tilings, the backward pair at D=40, 80
+# and 160; each with at most WGMMA_WAITS fixed waits
+SASS_FAMILIES = {"flash_fwd_wgmma": 6, "flash_fwd_tf32": 6, "flash_fwd_variant_wgmma": 9,
+                 "splash_fwd_wgmma": 3, "flash_bwd_dkv_wgmma": 3, "flash_bwd_dq_wgmma": 3}
+TF32_FAMILIES = ("flash_fwd_tf32",)
+SASS_OPS = ("HGMMA", "F32.TF32", "UTMALDG", "MUFU.EX2", "HMMA", "WARPGROUP.DEPBAR")
 
 
 def sass_phase() -> dict:
-    """The built library's bf16 wgmma kernels (K1's and K2's forward,
-    flash_fwd_wgmma; T1's, flash_fwd_variant_wgmma; T2's, splash_fwd_wgmma;
-    and the backward pair, flash_bwd_dkv_wgmma and flash_bwd_dq_wgmma) hold
-    HGMMA and UTMALDG in their SASS, their exps are on MUFU.EX2, and each
-    holds no more WARPGROUP.DEPBAR than the fixed waits its code issues
-    (ptxas adds one after every wgmma it serialises)."""
+    """The built library's wgmma kernels (K1's and K2's forward in bf16,
+    flash_fwd_wgmma, and in fp32, flash_fwd_tf32; T1's,
+    flash_fwd_variant_wgmma; T2's, splash_fwd_wgmma; and the backward pair,
+    flash_bwd_dkv_wgmma and flash_bwd_dq_wgmma) hold HGMMA and UTMALDG in
+    their SASS (the fp32 kernels' every HGMMA on TF32), their exps are on
+    MUFU.EX2, and each holds no more WARPGROUP.DEPBAR than the fixed waits
+    its code issues (ptxas adds one after every wgmma it serialises)."""
     from vexpress_torch.ops import flash
     from vexpress_torch.tools.ptxas_report import sass_ops
 
     lib = flash.build()
-    found = {part: sass_ops(lib, part) for part in SASS_FAMILIES}
+    found = {part: sass_ops(lib, part, SASS_OPS) for part in SASS_FAMILIES}
     ok = all(len(found[p]) == n and all({"HGMMA", "UTMALDG", "MUFU.EX2"} <= set(o)
                                         and o["WARPGROUP.DEPBAR"] <= WGMMA_WAITS
+                                        and (o["F32.TF32"] == o["HGMMA"]) == (p in TF32_FAMILIES)
                                         for o in found[p].values())
              for p, n in SASS_FAMILIES.items())
     for part, ops in found.items():
-        log(f"[sass] {len(ops)} bf16 kernels {part}, HGMMA, UTMALDG and MUFU.EX2 in each and "
-            f"at most {WGMMA_WAITS} WARPGROUP.DEPBAR: {ok}; "
+        log(f"[sass] {len(ops)} kernels {part}, HGMMA (TF32: {part in TF32_FAMILIES}), UTMALDG "
+            f"and MUFU.EX2 in each and at most {WGMMA_WAITS} WARPGROUP.DEPBAR: {ok}; "
             + "; ".join(f"{n}: {dict(sorted(o.items()))}" for n, o in sorted(ops.items())))
     if not ok:
-        raise PhaseError(f"a bf16 wgmma kernel lacks wgmma, TMA or ex2 in its SASS, or holds "
-                         f"more than {WGMMA_WAITS} wgmma waits: {found}")
+        raise PhaseError(f"a wgmma kernel lacks wgmma (on TF32 in fp32), TMA or ex2 in its SASS, "
+                         f"or holds more than {WGMMA_WAITS} wgmma waits: {found}")
     return dict(kernels={n: dict(o) for ops in found.values() for n, o in ops.items()})
 
 
@@ -375,7 +392,8 @@ def within_k1_grad_bar(bf16: bool, max_err: float, mean_err: float, ref_std: flo
 
 
 LSE_BAR = 2e-5  # fp32 log-sum-exp against the plain version (the bf16 kernel reads
-# 1.2e-5 at the D=40 training shapes, 1.4e-6 at D=80; the scalar fp32 kernel 2.4e-6)
+# 1.2e-5 at the D=40 training shapes, 1.4e-6 at D=80; the fp32 kernel 2.4e-6, scalar or
+# 3xTF32)
 
 
 def within_variant_bar(max_err: float, mean_err: float, ref_std: float, ref_max: float):
@@ -447,9 +465,15 @@ def kernel_phase(torch) -> dict:
         if dtype == torch.bfloat16:
             note += (f", exp floor {exp_floor_ms(b * heads * lq * lk, clock):.3f} ms at "
                      f"{clock:.0f} MHz")
-        bound_ms, bound_by = k1_bound_ms(b, lq, lk, inner, heads, torch.tensor([], dtype=dtype)
-                                         .element_size(), PEAK_BF16 if dtype == torch.bfloat16
-                                         else PEAK_FP32)
+        itemsize = q.element_size()
+        if dtype == torch.bfloat16:
+            bound_ms, bound_by = k1_bound_ms(b, lq, lk, inner, heads, itemsize, PEAK_BF16)
+        else:  # 3xTF32; the fp32 FMA units' time beside it
+            bound_ms, bound_by = k1_bound_ms(b, lq, lk, inner, heads, itemsize, PEAK_3XTF32)
+            extra["fma_bound_ms"] = k1_bound_ms(b, lq, lk, inner, heads, itemsize, PEAK_FP32)[0]
+            extra["split_ms"] = cuda_time_ms(torch, lambda: flash.launch_f32_split(q, k, v, heads))
+            note += (f", at the fp32 FMA peak {extra['fma_bound_ms']:.3f} ms; its split pass "
+                     f"{extra['split_ms']:.3f} ms")
         main_path = dtype == torch.bfloat16 and (name, b, lq, lk, inner, heads) in K1_SHAPES
         row = dict(shape=name, dtype=dtype_name, B=b, Lq=lq, Lk=lk, H=heads, D=d,
                    main_path=main_path, kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -509,14 +533,18 @@ def k2_row(torch, q, k, v, heads, exact, k1_row) -> dict:
     k1_ms = cuda_time_ms(torch, lambda: flash.flash_sdpa(q, k, v, heads))
     exps = b * heads * lq * lk
     note = ""
+    bound_ms, bound_by = k1_row["bound_ms"], k1_row["bound_by"]
+    if k1_row["dtype"] == "float32":  # P V in two TF32 products, not three
+        bound_ms, bound_by = k1_bound_ms(b, lq, lk, inner, heads, q.element_size(),
+                                         PEAK_K2_TF32)
     if small:
         small["k1_graph_ms"] = graph_time_ms(torch, lambda: flash.flash_sdpa(q, k, v, heads))
         note = (f", in a CUDA graph {small['graph_ms']:.4f} ms (K1 {small['k1_graph_ms']:.4f}), "
                 f"host issue {small['host_ms']:.4f} ms a call")
     row = dict(shape=name, dtype=k1_row["dtype"], B=b, Lq=lq, Lk=lk, H=heads, D=d,
                main_path=k1_row["main_path"], kernel_ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
-               library_ms=k1_row["library_ms"], bound_ms=k1_row["bound_ms"],
-               bound_by=k1_row["bound_by"], exps=exps, max_abs_err=max_err,
+               library_ms=k1_row["library_ms"], bound_ms=bound_ms, bound_by=bound_by,
+               exps=exps, max_abs_err=max_err,
                mean_abs_err=mean_err, tolerance=tol, exact_max_abs_err=exact_err,
                exact_tolerance=f"max<{K2_EXACT_BAR} vs exact fp32", **small)
     log(f"[kernel] K2 {name} {row['dtype']} B={b} Lq={lq} Lk={lk} D={d}: max|d|={max_err:.3e} "
@@ -663,7 +691,10 @@ def grad_kernel_rows(torch, gen) -> list:
         sdpa_fwd_bwd_ms = cuda_time_ms(torch, sdpa_fwd_bwd)
         del qh, kh, vh, doh
         bounds = k1_grad_bounds(b, lq, lk, inner, heads, q.element_size(),
-                                PEAK_BF16 if bf16 else PEAK_FP32)
+                                PEAK_BF16 if bf16 else PEAK_3XTF32)
+        fma = ({} if bf16 else dict(fma_bounds_ms={
+            k_: ms for k_, (ms, _) in k1_grad_bounds(b, lq, lk, inner, heads, q.element_size(),
+                                                     PEAK_FP32).items()}))
         del q, k, v, do, out_k, lse
         key = (b, lq, lk, d)
         case = (name, b, lq, lk, inner, heads)
@@ -675,7 +706,7 @@ def grad_kernel_rows(torch, gen) -> list:
                    plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
                    sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
                    bounds={k_: dict(ms=ms, by=by) for k_, (ms, by) in bounds.items()},
-                   errors=errs)
+                   errors=errs, **fma)
         rows.append(row)
         # stage 3's and 1024x1024's launches are reckoned, not run: the log
         # line has them and the row (which the kernels line prints) has not
@@ -687,7 +718,11 @@ def grad_kernel_rows(torch, gen) -> list:
             f"{exp_floor_ms(b * heads * lq * lk, fwd_clock):.3f} at {fwd_clock:.0f} MHz), "
             f"dk/dv {bwd['dkv_ms']:.3f} ms in {parts} part(s) (bound {bounds['dkv'][0]:.3f}), "
             f"dq {bwd['dq_ms']:.3f} ms (bound {bounds['dq'][0]:.3f}), di {bwd['di_ms']:.3f} ms, "
-            f"pair bound {bounds['pair'][0]:.3f} ms; sdpa bwd alone {bwd['sdpa_bwd_ms']:.3f} ms; "
+            f"pair bound {bounds['pair'][0]:.3f} ms"
+            + (f" (at the fp32 FMA peak: fwd {fma['fma_bounds_ms']['fwd']:.3f}, dk/dv "
+               f"{fma['fma_bounds_ms']['dkv']:.3f}, dq {fma['fma_bounds_ms']['dq']:.3f})"
+               if fma else "")
+            + f"; sdpa bwd alone {bwd['sdpa_bwd_ms']:.3f} ms; "
             f"plain fwd {plain_fwd_ms:.3f} ms, plain bwd "
             f"{plain_bwd_ms:.3f} ms, sdpa fwd {sdpa_fwd_ms:.3f} ms, fwd+bwd "
             f"{sdpa_fwd_bwd_ms:.3f} ms"
@@ -964,7 +999,7 @@ def _psnr(a, b) -> float:
 def cli_parity_run(torch, card, cpu, kw) -> dict:
     """The CLI's configuration on the parity phase's models and inputs, card
     against CPU: DPM-Solver++ (2M) at 2 steps, save_memory, K2 on (its fp32
-    scalar kernel on the card, its plain version on the CPU); the decoded
+    3xTF32 kernel on the card, its plain version on the CPU); the decoded
     video (PSNR > 45 dB) and its median-filtered YUV420 planes (within 1)."""
     import numpy as np
     from vexpress_torch.ops import flash, launches
@@ -2489,10 +2524,14 @@ def kernels_line(results: dict) -> list:
     fwd_by_path = dict(full=results["full"]["flash_launches"],
                        **{p: counts[p].get("flash_fwd", 0) for p in train_paths})
     sources = ["vexpress_torch/csrc/flash_fwd_wgmma.cuh (bf16)",
-               "vexpress_torch/csrc/flash_fwd.cu (launch, fp32)"]
+               "vexpress_torch/csrc/flash_fwd_tf32.cuh (fp32, 3xTF32)",
+               "vexpress_torch/csrc/flash_fwd.cu (launches, fp32 split pass)"]
+    # the fp32 kernels run off the main path: on the parity phase's models
+    parity = results["parity"]
     kernels = [entry("flash_fwd", "vexpress_torch/csrc/flash_fwd_wgmma.cuh",
                      "vexpress_tpu/ops/flash.py:42", fwd_parts, sum(fwd_by_path.values()),
                      sources=sources, launches_by_path=fwd_by_path,
+                     fp32_launches_by_path=dict(parity=parity["launches"].get("flash_fwd", 0)),
                      shapes=fwd_rows + [dict(r, kernel="flash_fwd") for r in main_grad])]
     for name, key, grads, lib_line in (
             ("flash_bwd_dkv", "dkv", ("dk", "dv"), ":941 _flash_attention_bwd_dkv"),
@@ -2535,6 +2574,8 @@ def kernels_line(results: dict) -> list:
           r["max_abs_err"]) for r in ran],
         results["cli_full"]["lite_launches"] + sum(results["sharded"]["lite_launches"]),
         plain_is="flash_lite_reference", sources=sources, k1_ms=sum(r["k1_ms"] for r in ran),
+        fp32_launches_by_path=dict(
+            parity_cli=parity["cli"]["launches"].get("flash_lite_fwd", 0)),
         exps=sum(r["exps"] for r in ran),
         launches_by_path=dict(cli_full=results["cli_full"]["lite_launches"],
                               **{f"sharded_rank{i}": n for i, n in

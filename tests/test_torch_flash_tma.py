@@ -1,6 +1,7 @@
 """The host side of the bf16 forward kernel (vexpress_torch/csrc/
-flash_fwd_wgmma.cuh) on the CPU: the TMA geometry that ops/flash_tma.py
-computes for every shape the main paths launch, the wrapper's refusals, and
+flash_fwd_wgmma.cuh) and of the fp32 one (csrc/flash_fwd_tf32.cuh) on the
+CPU: the TMA geometry that ops/flash_tma.py computes for every shape the main
+paths and the kernel phase's fp32 rows launch, the wrapper's refusals, and
 K2's packed-exp rounding (ops/flash_lite.py::lite_packed_exp) against the JAX
 package's Pallas K2 in interpret mode.
 
@@ -28,6 +29,10 @@ SHAPES = sorted({(n, b, lq, lk, h, i // h)
                  for n, b, lq, lk, i, h, *dt in K1_SHAPES + K1_G2_SHAPES + TRAIN_K1_SHAPES
                  + K1_EXTRA + TRAIN_K1_EXTRA if not dt or dt[0] == "bfloat16"})
 LAUNCHES = [(s, flash_tma.SWIZZLE[s[5]]) for s in SHAPES]
+# (name, B, Lq, Lk, H, D) of every fp32 shape the kernel phase checks
+F32_SHAPES = sorted({(n, b, lq, lk, h, i // h)
+                     for n, b, lq, lk, i, h, *dt in K1_EXTRA + TRAIN_K1_EXTRA
+                     if dt[0] == "float32"})
 
 
 def test_shapes_cover_the_paths():
@@ -81,6 +86,96 @@ def test_tile_is_the_launch_geometry(d):
     assert geom["smem"] == t["smem"] and geom["threads"] == t["threads"]
     arg = list(flash_tma.geometry_arg(geom))
     assert arg[:4] == [t["swizzle"], t["box_cols"], t["tile_q"], t["tile_k"]]
+
+
+def test_f32_shapes_cover_the_head_dims():
+    assert {s[5] for s in F32_SHAPES} == set(flash_tma.F32_TILES) == {40, 80, 160}
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda x: str(x))
+def test_f32_geometry_meets_tma_rules(shape):
+    """The fp32 kernel's maps: Q's and K's parts in q's and k's layout with
+    4-byte elements, V^T's parts (Lk, D, H, B); boxes within TMA's limits and
+    their swizzle spans; whole key tiles; the shared memory within the SM's."""
+    _, b, lq, lk, h, d = shape
+    geom = flash_tma.f32_geometry(b, lq, lk, h, d)
+    t = flash_tma.f32_tile(d)
+    assert flash_tma.tma_violations(geom) == []
+    for name, length, rows in (("q", lq, t["tile_q"]), ("kv", lk, t["tile_k"])):
+        m = geom[name]
+        assert m["dims"] == (d, h, length, b)
+        assert m["strides"] == (4 * d, 4 * h * d, 4 * length * h * d)
+        assert m["box"] == (t["box_cols"], 1, rows, 1) and t["box_cols"] * 4 == t["swizzle"]
+    vt = geom["vt"]
+    assert vt["dims"] == (lk, d, h, b) and vt["strides"] == (4 * lk, 4 * d * lk, 4 * h * d * lk)
+    assert vt["box"] == (t["v_box_cols"], d, 1, 1) and t["v_box_cols"] * 4 == vt["swizzle"]
+    for m in (geom["q"], geom["kv"], vt):
+        assert all(s % 16 == 0 and s < 2**40 for s in m["strides"])
+        assert all(0 < n <= 256 for n in m["box"])
+    assert d % 8 == 0 and lk % t["tile_k"] == 0 and t["tile_k"] % t["v_box_cols"] == 0
+    assert geom["grid"] == (-(-lq // t["tile_q"]), b * h) and geom["grid"][1] <= 65535
+    assert geom["smem"] == t["smem"] <= flash_tma.SMEM_LIMIT
+    assert geom["scratch_floats"] == 2 * b * lq * h * d + 4 * b * lk * h * d
+    arg = list(flash_tma.f32_geometry_arg(geom))
+    assert len(arg) == 30
+    assert arg[:9] == [t["swizzle"], t["box_cols"], t["v_swizzle"], t["v_box_cols"],
+                       t["tile_q"], t["tile_k"], *geom["grid"], t["smem"]]
+
+
+@pytest.mark.parametrize("d", sorted(flash_tma.F32_TILES))
+def test_f32_tile_is_the_shared_memory_layout(d):
+    """f32_tile (what vx_flash_fwd_f32_tile must report): Q's two parts,
+    3 stages of K's and V^T's two parts, the barriers and the slack, every
+    part a whole number of swizzle periods (8 rows of its span)."""
+    t = flash_tma.f32_tile(d)
+    assert tuple(t) == flash_tma.F32_TILE_FIELDS
+    sw, bq, bk = flash_tma.F32_TILES[d]
+    chunks = -(-d // (sw // 4))
+    q_part, k_part = chunks * bq * sw, chunks * bk * sw
+    v_part = bk // t["v_box_cols"] * d * t["v_swizzle"]
+    assert t["smem"] == 2 * q_part + 3 * (2 * k_part + 2 * v_part) + 8 * 7 + 1024
+    for part, span in ((q_part, sw), (k_part, sw), (v_part, t["v_swizzle"])):
+        assert part % (8 * span) == 0
+    assert t["threads"] == 128 * (bq // 64 + 1) and t["blocks_per_sm"] == 1
+    assert chunks * sw // 4 - d < sw // 4  # no chunk wholly past D
+
+
+def test_f32_violations_are_named():
+    geom = flash_tma.f32_geometry(2, 1024, 1024, 8, 40)
+    assert any("no instantiation" in m
+               for m in flash_tma.tma_violations(dict(geom, swizzle=128)))
+    vt = dict(geom["vt"], box=(64, 40, 1, 1))
+    assert any("swizzle span" in m for m in flash_tma.tma_violations(dict(geom, vt=vt)))
+    kv = dict(geom["kv"], dims=(40, 8, 1000, 2))
+    assert any("whole tiles" in m for m in flash_tma.tma_violations(dict(geom, kv=kv)))
+    with pytest.raises(ValueError, match="no instantiation for D=64"):
+        flash._f32_geometry(1, 128, 128, 2, 64)
+
+
+class _FakeF32TileLibrary:
+    """Stands in for the built library's vx_flash_fwd_f32_tile."""
+
+    def __init__(self, tiles):
+        self.tiles = tiles
+
+    def vx_flash_fwd_f32_tile(self, d, out):
+        if d not in self.tiles:
+            return 1
+        for i, name in enumerate(flash_tma.F32_TILE_FIELDS):
+            out[i] = self.tiles[d][name]
+        return 0
+
+
+@pytest.mark.parametrize("field", flash_tma.F32_TILE_FIELDS)
+def test_f32_tile_check_names_a_mismatch(monkeypatch, field):
+    monkeypatch.setattr(flash, "_f32_tiles_checked", set())
+    flash._check_f32_tile(_FakeF32TileLibrary({d: flash_tma.f32_tile(d)
+                                               for d in flash_tma.F32_TILES}), 160)
+    assert flash._f32_tiles_checked == {160}
+    built = dict(flash_tma.f32_tile(80))
+    built[field] += 16
+    with pytest.raises(RuntimeError, match="fp32 forward at D=80: the library's tiling"):
+        flash._check_f32_tile(_FakeF32TileLibrary({80: built}), 80)
 
 
 class _FakeTileLibrary:

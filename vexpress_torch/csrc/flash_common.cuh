@@ -1,6 +1,6 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// and the forward and backward templates): dtype conversions, bf16 packing,
-// K2's roundings, element strides and the shape check every launch makes.
+// and the forward and backward templates): bf16 packing, K2's roundings
+// and the shape check every launch makes.
 //
 // The A fragment of a 16-deep k-step that an RS wgmma reads from registers
 // (hopper.cuh) is mma.sync m16n8k16's (g = lane / 4, t = lane % 4):
@@ -20,14 +20,6 @@ namespace vx {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) is the low half
@@ -50,10 +42,5 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
 inline bool flash_shape_ok(int B, int H, int Lq, int Lk) {
   return Lq % 64 == 0 && Lk % 64 == 0 && Lq > 0 && Lk > 0 && B * H <= 65535;
 }
-
-// element strides of the forward kernels: batch, head, row (the head dim is contiguous)
-struct Strides {
-  long long q_b, q_h, q_l, k_b, k_h, k_l, v_b, v_h, v_l, o_b, o_h, o_l;
-};
 
 }  // namespace vx

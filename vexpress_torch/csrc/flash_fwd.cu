@@ -16,6 +16,9 @@
 // 1.04 ms). The exp per logit (B*H*Lq*Lk of them, 6.4e9 there) runs on the
 // SFUs at 16/clk/SM, about 1.7 ms at 1.8 GHz: at D=40 the exps, not the
 // matrix products, set the real floor, and at D=80 the two are about equal.
+// In fp32 the products run as three TF32 products each (3xTF32, K2's P V as
+// two) at 495e12 TF32 FLOP/s: 3*4*B*H*Lq*Lk*D / 495e12 s (attn1 at 64x64:
+// 6.25 ms), against 15.4 ms at the 67e12 of the fp32 FMA units.
 //
 // Design against that bound:
 // * bf16: flash_fwd_wgmma (flash_fwd_wgmma.cuh, the template that T1 and T2
@@ -30,9 +33,13 @@
 //   found with cudaGetDriverEntryPoint, so the library needs no -lcuda), and
 //   passed as __grid_constant__ parameters.
 //   K1's exps are ex2.approx.ftz.f32 with scale*log2(e) folded into one FMA.
-// * fp32: flash_fwd_simt, scalar FMAs (4 threads per query row, each owning
-//   D/4 columns), 64 query rows and 32-key tiles a block, exact fp32
-//   arithmetic; used by the parity checks.
+// * fp32: flash_fwd_tf32 (flash_fwd_tf32.cuh), the same design on tf32
+//   wgmma with each operand split into tf32 hi and lo parts: a split pass
+//   (tf32_split, tf32_split_vt below) writes q's, k's and v's parts, v's
+//   transposed, into a scratch buffer (6 tensors of q's or k's size), then
+//   the kernel reads them by TMA. Tilings (VX_F32): 128 query rows and
+//   64-key stages at D=40, 32-key at D=80; 64 rows and 16-key stages at
+//   D=160; 3 stages.
 // Later work: the row sums on the tensor cores, part of the exps on the FMA
 // units (at D=40 the SFUs bound the kernel), ordering the two warpgroups'
 // softmax and products against each other.
@@ -42,8 +49,8 @@
 // _fwd_kernel), which the JAX package runs in place of the library kernel
 // under VEXPRESS_FLASH_LITE=1. Its softmax differs from K1's on purpose:
 // q is multiplied by the scale cast to q's dtype and rounded to that dtype
-// (bf16: in shared memory, before the first product; no fp32 scale*log2e
-// fold); the running max is in natural-log units; the correction exp(m_old -
+// (bf16: in shared memory, before the first product; fp32: by the split
+// pass; no fp32 scale*log2e fold); the running max is in natural-log units; the correction exp(m_old -
 // m_new), the sum and the accumulator stay fp32; the sum adds the bf16
 // probabilities in fp32 and P V takes them as they are. Each probability is
 // bf16(exp(bf16(s - m))) in the plain version (ops/flash_lite.py) and the TPU
@@ -51,98 +58,26 @@
 // bf16(bf16(s - m) * log2(e)) on packed pairs (the product by two bf16x2
 // FMAs with log2(e) split in two bf16), one SFU operation for two exps, which
 // moves p by about a bf16 ulp (flash_lite.lite_packed_exp emulates it); the fp32 kernel as __expf of bf16(s - m), rounded. Its key
-// tile (128 in bf16, 32 in fp32) is not the TPU kernel's 512, so the running
+// tile (128 in bf16; 64, 32, 16 in fp32) is not the TPU kernel's 512, so the running
 // max, and with it what is rounded, differs from the plain version's: they
 // agree to bf16 rounding, not bitwise.
 //
-// Layout: q (B, Lq, H*D), k/v (B, Lk, H*D), o like q; bf16 tensors
-// contiguous, fp32 read through the batch and row strides given (elements;
-// the last dim contiguous). Lq and Lk must be multiples of 64 and D one of
+// Layout: q (B, Lq, H*D), k/v (B, Lk, H*D), o like q, all contiguous. Lq
+// and Lk must be multiples of 64 and D one of
 // 40, 80, 160 (the wrapper checks). A launch goes on the caller's stream,
 // allocates nothing and does not synchronise; each function returns
 // cudaGetLastError(), or a failed encode's code (vx_error_string names it).
 
 #include <stdio.h>
 
+#include <algorithm>
+
+#include "flash_fwd_tf32.cuh"
 #include "flash_fwd_wgmma.cuh"
 
 namespace {
 
 using namespace vx;
-
-constexpr int BQ = 64;  // query rows per block of the scalar kernel
-
-// ------------------------------------------------------------- scalar (SIMT)
-// `scale` as in flash_fwd_wgmma; the packed layout only (head stride D)
-template <typename T, int D, bool LITE>
-__global__ void __launch_bounds__(256)
-flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, float* __restrict__ lse, int H, int Lk, Strides st,
-               float scale) {
-  constexpr int TK = 32;     // keys per shared-memory tile
-  constexpr int DQ = D / 4;  // columns owned by each of a row's 4 threads
-  __shared__ float ks[TK][D];
-  __shared__ float vs[TK][D];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, row = tid >> 2, part = tid & 3;
-  const long long qi = (long long)blockIdx.x * BQ + row;
-
-  const T* qp = q + b * st.q_b + qi * st.q_l + h * D + part * DQ;
-  const T* kb = k + b * st.k_b + h * D;
-  const T* vb = v + b * st.v_b + h * D;
-
-  float qr[DQ], acc[DQ];
-#pragma unroll
-  for (int d = 0; d < DQ; ++d) {
-    qr[d] = LITE ? to_f32(from_f32<T>(to_f32(qp[d]) * scale)) : to_f32(qp[d]) * scale;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int kt = 0; kt < Lk; kt += TK) {
-    __syncthreads();
-    for (int i = tid; i < TK * D; i += blockDim.x) {
-      const int r = i / D, c = i % D;
-      ks[r][c] = to_f32(kb[(long long)(kt + r) * st.k_l + c]);
-      vs[r][c] = to_f32(vb[(long long)(kt + r) * st.v_l + c]);
-    }
-    __syncthreads();
-
-    float s[TK];
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < TK; ++j) {
-      float a = 0.f;
-#pragma unroll
-      for (int d = 0; d < DQ; ++d) a = fmaf(qr[d], ks[j][part * DQ + d], a);
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      s[j] = a;
-      mx = fmaxf(mx, a);
-    }
-    const float alpha = LITE ? __expf(m - mx) : exp2f(m - mx);
-    m = mx;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < DQ; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < TK; ++j) {
-      const float p = LITE ? exp_bf16(s[j] - m) : exp2f(s[j] - m);
-      l += p;
-#pragma unroll
-      for (int d = 0; d < DQ; ++d) acc[d] = fmaf(p, vs[j][part * DQ + d], acc[d]);
-    }
-  }
-
-  if (!LITE && lse != nullptr && part == 0)
-    lse[(long long)bh * gridDim.x * BQ + qi] = (m + log2f(l)) * LN2;
-  T* op = o + b * st.o_b + qi * st.o_l + h * D + part * DQ;
-  const float inv = 1.f / l;
-#pragma unroll
-  for (int d = 0; d < DQ; ++d) op[d] = from_f32<T>(acc[d] * inv);
-}
 
 // ------------------------------------------------------------- bf16 (TMA)
 // `geom` (ops/flash_tma.py::geometry_arg): swizzle bytes, box columns, box
@@ -174,13 +109,102 @@ int forward_bf16(const void* q, const void* k, const void* v, void* o, float* ls
   return (int)cudaErrorInvalidValue;
 }
 
-template <int D, bool LITE>
-void launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                 int Lq, int Lk, const Strides& st, float scale, cudaStream_t s) {
-  flash_fwd_simt<float, D, LITE><<<dim3(Lq / BQ, B * H), 256, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, H, Lk, st, scale);
+// ------------------------------------------------------------- fp32 (TMA, tf32)
+// x rounded to tf32 (hi) and what that left, rounded to tf32 (lo)
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = __uint_as_float(tf32_rna(x));
+  lo = __uint_as_float(tf32_rna(x - hi));
 }
+
+// hi and lo parts of x * mul (`n4` float4s; the product rounded to fp32
+// first, as K2's plain version rounds q * scale)
+__global__ void __launch_bounds__(256)
+tf32_split(const float4* __restrict__ x, float4* __restrict__ hi, float4* __restrict__ lo,
+           long long n4, float mul) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4; i += gridDim.x * 256ll) {
+    const float4 v = x[i];
+    float4 h, l;
+    split_tf32(__fmul_rn(v.x, mul), h.x, l.x);
+    split_tf32(__fmul_rn(v.y, mul), h.y, l.y);
+    split_tf32(__fmul_rn(v.z, mul), h.z, l.z);
+    split_tf32(__fmul_rn(v.w, mul), h.w, l.w);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// v (B, Lk, H*D) -> its hi and lo parts transposed, (B, H, D, Lk), each group
+// of 8 keys in perm_key's order (flash_fwd_tf32.cuh); one block per 32 keys
+// of one (batch, head)
+template <int D>
+__global__ void __launch_bounds__(256)
+tf32_split_vt(const float* __restrict__ v, float* __restrict__ hi, float* __restrict__ lo, int H,
+              int Lk) {
+  constexpr int TK = 32;
+  __shared__ float tile[TK][D + 1];
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * TK;
+  const float* src = v + ((long long)b * Lk + k0) * H * D + h * D;
+  for (int i = threadIdx.x; i < TK * D; i += 256) tile[i / D][i % D] = src[(long long)(i / D) * H * D + i % D];
+  __syncthreads();
+  const long long base = (long long)bh * D * Lk + k0;
+  for (int i = threadIdx.x; i < TK * D; i += 256) {
+    const int d = i / TK, col = i % TK;
+    float hv, lv;
+    split_tf32(tile[(col & ~7) + perm_key(col & 7)][d], hv, lv);
+    hi[base + (long long)d * Lk + col] = hv;
+    lo[base + (long long)d * Lk + col] = lv;
+  }
+}
+
+// the parts in the scratch buffer, in this order: q hi, q lo, k hi, k lo,
+// v^T hi, v^T lo (q's size twice, then k's four times)
+struct Tf32Parts {
+  float *qh, *ql, *kh, *kl, *vh, *vl;
+  Tf32Parts(void* parts, long long nq, long long nk) {
+    qh = static_cast<float*>(parts);
+    ql = qh + nq;
+    kh = ql + nq;
+    kl = kh + nk;
+    vh = kl + nk;
+    vl = vh + nk;
+  }
+};
+
+// `geom` (ops/flash_tma.py::f32_geometry_arg): swizzle bytes and box columns
+// of Q and K, of V^T, query rows and keys a tile, grid x and y, dynamic
+// shared memory bytes, then the dims and byte strides of the maps of Q's
+// parts (D, H, Lq, B), K's (D, H, Lk, B) and V^T's (Lk, D, H, B)
+template <int D, bool LITE, int SW, int BQ, int BK>
+int launch_tf32(const Tf32Parts& p, float* o, float* lse, int H, int Lq, int Lk,
+                const long long* geom, float scale, cudaStream_t s) {
+  using T = K1Tf32Tile<D, SW, BQ, BK>;
+  static std::atomic<unsigned long long> smem_set{0};
+  if (geom[0] != T::SW || geom[1] != T::CW || geom[2] != T::SWV || geom[3] != T::CWV ||
+      geom[4] != T::BQ || geom[5] != T::BK || geom[6] != (Lq + T::BQ - 1) / T::BQ ||
+      geom[7] <= 0 || geom[7] > 65535 || geom[8] != T::SMEM)
+    return (int)cudaErrorInvalidValue;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap m[6];
+  const float* bases[6] = {p.qh, p.ql, p.kh, p.kl, p.vh, p.vl};
+  for (int i = 0; i < 6; ++i) {
+    const long long* g = geom + 9 + 7 * (i / 2);  // dims, then byte strides
+    const int rc = i < 4 ? encode(&m[i], bases[i], g, g + 4, T::CW, i < 2 ? T::BQ : T::BK, T::SW,
+                                  2, F32)
+                         : encode(&m[i], bases[i], g, g + 4, T::CWV, D, T::SWV, 1, F32);
+    if (rc != 0) return rc;
+  }
+  const int rc = set_smem_once(flash_fwd_tf32<T, LITE>, T::SMEM, smem_set);
+  if (rc != 0) return rc;
+  const FwdArgs a{H, Lq, Lk, 0, scale, (long long)Lq * H * D, D, (long long)H * D};
+  flash_fwd_tf32<T, LITE><<<dim3((unsigned)geom[6], (unsigned)geom[7]), T::THREADS, T::SMEM, s>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], o, lse, a);
+  return (int)cudaGetLastError();
+}
+
+// the (D, swizzle bytes of Q and K, query rows, keys a tile) instantiations,
+// K1's and K2's. The wrapper's table is ops/flash_tma.py::F32_TILES;
+// `vx_flash_fwd_f32_tile` lets it check that the two agree.
+#define VX_F32(X) X(40, 64, 128, 64) X(80, 64, 128, 32) X(160, 128, 64, 16)
 
 }  // namespace
 
@@ -201,29 +225,70 @@ int vx_flash_fwd_tma(const void* q, const void* k, const void* v, void* o, void*
                                     scale * LOG2E, s);
 }
 
-// fp32, read through the strides given (elements); `lse`, `lite` and
-// `scale` as above (K2's scale rounded to fp32 is the scale).
-int vx_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int lite,
-                     int B, int H, int Lq, int Lk, int D, long long q_sb, long long q_sl,
-                     long long k_sb, long long k_sl, long long v_sb, long long v_sl,
-                     long long o_sb, long long o_sl, float scale, void* stream) {
+// fp32, first of two calls: the split pass. Writes the tf32 parts of q
+// (times `qmul`: K2's scale, else 1), k and v into `parts` (Tf32Parts' order;
+// 2*B*Lq*H*D + 4*B*Lk*H*D floats, 16-byte aligned). Contiguous q, k, v.
+int vx_flash_fwd_f32_split(const void* q, const void* k, const void* v, void* parts, int B, int H,
+                           int Lq, int Lk, int D, float qmul, void* stream) {
+  if (!vx::flash_shape_ok(B, H, Lq, Lk) || (D != 40 && D != 80 && D != 160))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long nq = (long long)B * Lq * H * D, nk = (long long)B * Lk * H * D;
+  const Tf32Parts p(parts, nq, nk);
+  const auto blocks = [](long long n4) { return (unsigned)std::min(n4 / 256 + 1, 132ll * 16); };
+  tf32_split<<<blocks(nq / 4), 256, 0, s>>>(static_cast<const float4*>(q),
+                                            reinterpret_cast<float4*>(p.qh),
+                                            reinterpret_cast<float4*>(p.ql), nq / 4, qmul);
+  tf32_split<<<blocks(nk / 4), 256, 0, s>>>(static_cast<const float4*>(k),
+                                            reinterpret_cast<float4*>(p.kh),
+                                            reinterpret_cast<float4*>(p.kl), nk / 4, 1.f);
+  const dim3 grid(Lk / 32, B * H);
+  const float* vf = static_cast<const float*>(v);
+  if (D == 40) tf32_split_vt<40><<<grid, 256, 0, s>>>(vf, p.vh, p.vl, H, Lk);
+  if (D == 80) tf32_split_vt<80><<<grid, 256, 0, s>>>(vf, p.vh, p.vl, H, Lk);
+  if (D == 160) tf32_split_vt<160><<<grid, 256, 0, s>>>(vf, p.vh, p.vl, H, Lk);
+  return (int)cudaGetLastError();
+}
+
+// fp32, second call: the kernel on the parts that the split pass wrote.
+// `o` contiguous (B, Lq, H*D) fp32; `lse`, `lite` and `scale` as
+// vx_flash_fwd_tma's (K2's scale is already in q's parts).
+int vx_flash_fwd_f32(const void* parts, void* o, void* lse, int lite, int B, int H, int Lq,
+                     int Lk, int D, const long long* geom, float scale, void* stream) {
   if (!vx::flash_shape_ok(B, H, Lq, Lk) || (lite && lse != nullptr))
     return (int)cudaErrorInvalidValue;
-  const Strides st{q_sb, D, q_sl, k_sb, D, k_sl, v_sb, D, v_sl, o_sb, D, o_sl};
+  const Tf32Parts p(const_cast<void*>(parts), (long long)B * Lq * H * D,
+                    (long long)B * Lk * H * D);
+  float* out = static_cast<float*>(o);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VX_SIMT(D_)                                                                      \
-  if (D == D_) {                                                                         \
-    if (lite)                                                                            \
-      launch_simt<D_, true>(q, k, v, o, nullptr, B, H, Lq, Lk, st, scale, s);            \
-    else                                                                                 \
-      launch_simt<D_, false>(q, k, v, o, l, B, H, Lq, Lk, st, scale * LOG2E, s);         \
-    return (int)cudaGetLastError();                                                      \
+#define VX_CASE(D_, SW_, BQ_, BK_)                                                          \
+  if (D == D_)                                                                              \
+    return lite ? launch_tf32<D_, true, SW_, BQ_, BK_>(p, out, nullptr, H, Lq, Lk, geom,    \
+                                                       scale, s)                            \
+                : launch_tf32<D_, false, SW_, BQ_, BK_>(p, out, l, H, Lq, Lk, geom,         \
+                                                        scale * LOG2E, s);
+  VX_F32(VX_CASE)
+#undef VX_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tiling of the fp32 kernel at head dim D, in the order of
+// ops/flash_tma.py::F32_TILE_FIELDS: swizzle bytes and box columns of Q and
+// K, of V^T, query rows and keys per tile, blocks per SM, dynamic shared
+// memory bytes, threads, stages. cudaErrorInvalidValue for a D with no
+// instantiation.
+int vx_flash_fwd_f32_tile(int D, long long* out) {
+#define VX_TILE(D_, SW_, BQ_, BK_)                                                            \
+  if (D == D_) {                                                                             \
+    using T = K1Tf32Tile<D_, SW_, BQ_, BK_>;                                                 \
+    const long long t[10] = {T::SW, T::CW, T::SWV, T::CWV, T::BQ, T::BK, T::MINB, T::SMEM,   \
+                             T::THREADS, T::STAGES};                                         \
+    for (int i = 0; i < 10; ++i) out[i] = t[i];                                              \
+    return 0;                                                                                \
   }
-  VX_SIMT(40)
-  VX_SIMT(80)
-  VX_SIMT(160)
-#undef VX_SIMT
+  VX_F32(VX_TILE)
+#undef VX_TILE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks of the bf16 flash kernels: mbarriers, TMA
-// loads (tiled 4-D boxes and 1-D bulk copies), wgmma descriptors, fences and
-// products, and, on the host, the encoding of the 4-D tensor maps. The
-// forward (flash_fwd_wgmma.cuh, launched from flash_fwd.cu) and the backward
-// (flash_bwd_wgmma.cuh, launched from flash_bwd.cu) both include this header.
+// Hopper (sm_90a) building blocks of the flash kernels: mbarriers, TMA loads
+// (tiled 4-D boxes and 1-D bulk copies), wgmma descriptors, fences and
+// products (bf16, and tf32 for the fp32 forward), and, on the host, the
+// encoding of the 4-D tensor maps. The bf16 forward (flash_fwd_wgmma.cuh),
+// the fp32 forward (flash_fwd_tf32.cuh), both launched from flash_fwd.cu,
+// and the backward (flash_bwd_wgmma.cuh, launched from flash_bwd.cu) include
+// this header.
 
 #pragma once
 
@@ -214,6 +216,93 @@ __device__ __forceinline__ void wgmma_rs_n160(float (&d)[80], const uint32_t (&a
       : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24), VX_F8(32), VX_F8(40), VX_F8(48), VX_F8(56), VX_F8(64), VX_F8(72)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+
+// tf32 (the fp32 forward, flash_fwd_tf32.cuh): a k-step is 8 deep (32 bytes,
+// as bf16's 16), both operands K-major; an RS product's A fragment of rows
+// 16w..16w+15 is mma.sync m16n8k8's for tf32 (g = lane / 4, t = lane % 4):
+// a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4].
+#define VX_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+// d (64 x 16) = (scale_d ? d : 0) + A (64 x 8) B^T (B 16 x 8), tf32, both K-major in smem
+__device__ __forceinline__ void wgmma_ss_tf32_n16(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : VX_F8(0)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32) = (scale_d ? d : 0) + A (64 x 8) B^T (B 32 x 8), tf32, both K-major in smem
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : VX_F8(0), VX_F8(8)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) = (scale_d ? d : 0) + A (64 x 8) B^T (B 64 x 8), tf32, both K-major in smem
+__device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 40) = (scale_d ? d : 0) + A (64 x 8, tf32 fragments in registers) B^T
+// (B 40 x 8, K-major in smem)
+__device__ __forceinline__ void wgmma_rs_tf32_n40(float (&d)[20], const uint32_t (&a)[4], uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : VX_F8(0), VX_F8(8), VX_F4(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 80) = (scale_d ? d : 0) + A (64 x 8, tf32 fragments in registers) B^T
+// (B 80 x 8, K-major in smem)
+__device__ __forceinline__ void wgmma_rs_tf32_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24), VX_F8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 160) = (scale_d ? d : 0) + A (64 x 8, tf32 fragments in registers) B^T
+// (B 160 x 8, K-major in smem)
+__device__ __forceinline__ void wgmma_rs_tf32_n160(float (&d)[80], const uint32_t (&a)[4], uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1;\n}\n"
+      : VX_F8(0), VX_F8(8), VX_F8(16), VX_F8(24), VX_F8(32), VX_F8(40), VX_F8(48), VX_F8(56), VX_F8(64), VX_F8(72)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+#undef VX_F4
 #undef VX_F8
 
 // d (64 x N) = (scale_d ? d : 0) + A (64 x 16) B^T (B N x 16) over one
@@ -248,6 +337,44 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[NV / 2], const uint32_t (&a)
   }
 }
 
+// tf32: d (64 x N) = (scale_d ? d : 0) + A (64 x 8) B^T (B N x 8), both
+// K-major in smem
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  if constexpr (N == 16) {
+    wgmma_ss_tf32_n16(d, a, b, scale_d);
+  } else if constexpr (N == 32) {
+    wgmma_ss_tf32_n32(d, a, b, scale_d);
+  } else {
+    static_assert(N == 64, "tf32 SS product widths 16, 32, 64");
+    wgmma_ss_tf32_n64(d, a, b, scale_d);
+  }
+}
+
+// tf32: d (64 x N) = (scale_d ? d : 0) + A (64 x 8 from registers) B^T (B N x 8,
+// K-major in smem)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  if constexpr (N == 40) {
+    wgmma_rs_tf32_n40(d, a, b, scale_d);
+  } else if constexpr (N == 80) {
+    wgmma_rs_tf32_n80(d, a, b, scale_d);
+  } else {
+    static_assert(N == 160, "tf32 RS product widths 40, 80, 160");
+    wgmma_rs_tf32_n160(d, a, b, scale_d);
+  }
+}
+
+// x rounded to tf32 (nearest, ties away from zero): the fp32 bits with the
+// low 13 cleared (ops/flash.py::split_tf32 mirrors it)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -277,11 +404,12 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D bf16 map: dims (D, H, L, B), or (D, L, H, B) with `row_dim` 1, byte
-// strides of dims 1..3, box (cols, 1, rows, 1), or (cols, rows, 1, 1) with
-// `row_dim` 1, zeros past the tensor's bounds.
+// A 4-D map of bf16 (or `dtype`) elements: dims (D, H, L, B), or (D, L, H, B)
+// with `row_dim` 1, byte strides of dims 1..3, box (cols, 1, rows, 1), or
+// (cols, rows, 1, 1) with `row_dim` 1, zeros past the tensor's bounds.
 inline int encode(CUtensorMap* map, const void* base, const long long* dims,
-                  const long long* strides, int cols, int rows, int sw, int row_dim = 2) {
+                  const long long* strides, int cols, int rows, int sw, int row_dim = 2,
+                  CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
   const cuuint64_t gdim[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1], (cuuint64_t)dims[2],
@@ -294,7 +422,7 @@ inline int encode(CUtensorMap* map, const void* base, const long long* dims,
   const CUtensorMapSwizzle swizzle = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim,
+  const CUresult r = fn(map, dtype, 4, const_cast<void*>(base), gdim,
                         gstride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;

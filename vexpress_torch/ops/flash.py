@@ -5,7 +5,9 @@ library's Pallas TPU flash-attention kernel (and, under a gradient, its two
 backward kernels). Here the kernels are `csrc/flash_fwd.cu` (forward, with an
 optional log-sum-exp output: bf16 through TMA and wgmma,
 `csrc/flash_fwd_wgmma.cuh`, with its host-side geometry in `flash_tma.py`;
-fp32 scalar) and `csrc/flash_bwd.cu` (dk/dv and dq: bf16 through TMA and
+fp32 through TMA and tf32 wgmma at fp32's accuracy, each operand split into
+two tf32 parts, `csrc/flash_fwd_tf32.cuh`, `split_tf32` below its
+arithmetic) and `csrc/flash_bwd.cu` (dk/dv and dq: bf16 through TMA and
 wgmma, `csrc/flash_bwd_wgmma.cuh`, with its host geometry in `flash_tma.py`
 too; fp32 scalar), CUDA C++ for sm_90a,
 built by nvcc into one plain-C shared library under `vexpress_torch/_build/`
@@ -119,14 +121,17 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.vx_flash_fwd_tma.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, f, p]
             lib.vx_flash_fwd_tma.restype = i
             lib.vx_flash_fwd_tile.argtypes = [i, p]
             lib.vx_flash_fwd_tile.restype = i
-            lib.vx_flash_fwd_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                             ll, ll, ll, ll, ll, ll, ll, ll, f, p]
+            lib.vx_flash_fwd_f32_split.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+            lib.vx_flash_fwd_f32_split.restype = i
+            lib.vx_flash_fwd_f32.argtypes = [p, p, p, i, i, i, i, i, i, p, f, p]
             lib.vx_flash_fwd_f32.restype = i
+            lib.vx_flash_fwd_f32_tile.argtypes = [i, p]
+            lib.vx_flash_fwd_f32_tile.restype = i
             lib.vx_flash_bwd_dkv_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
             lib.vx_flash_bwd_dkv_f32.restype = i
             lib.vx_flash_bwd_dq_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
@@ -221,6 +226,45 @@ def flash_sdpa_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return dq, dk.reshape(b, lk, inner).to(k.dtype), dv.reshape(b, lk, inner).to(v.dtype)
 
 
+# The fp32 kernel's arithmetic (csrc/flash_fwd_tf32.cuh): each operand as two
+# tf32 parts. Column 8j + i of the transposed v's parts holds key
+# 8j + TF32_KEY_ORDER[i] (the kernel's perm_key).
+TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to tf32 as cvt.rna.tf32.f32 rounds it: half of the
+    last kept place (bit 13) added to the magnitude, which rounds ties away
+    from zero, then the low 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 x, as the fp32 kernel's split pass and its split of
+    p compute them: hi = tf32(x), lo = tf32(x - hi), so hi + lo holds x to
+    about 2^-22 of itself and a product is hi hi + hi lo + lo hi to fp32's
+    accuracy."""
+    x = x.float()
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def tf32_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+               qmul: float = 1.0) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the fp32 forward's split pass (csrc/flash_fwd.cu:
+    tf32_split, tf32_split_vt): the hi and lo parts of q * qmul (the product
+    rounded to fp32; K2's scale, else 1), of k, both (B, L, H*D), and of v
+    transposed to (B, H, D, Lk) with each group of 8 keys in
+    TF32_KEY_ORDER: (qh, ql, kh, kl, vh, vl)."""
+    b, lk, inner = v.shape
+    d = inner // heads
+    qs = q.float() * torch.tensor(qmul, dtype=torch.float32, device=q.device)
+    vt = (v.float().reshape(b, lk // 8, 8, heads, d)[:, :, list(TF32_KEY_ORDER)]
+          .permute(0, 3, 4, 1, 2).reshape(b, heads, d, lk))
+    return (*split_tf32(qs), *split_tf32(k), *split_tf32(vt))
+
+
 # ------------------------------------------------------------------ kernels
 
 
@@ -278,11 +322,12 @@ def _stream(t: torch.Tensor) -> int:
 
 
 _tiles_checked = set()
+_f32_tiles_checked = set()
 _bwd_tiles_checked = set()
 
 
 def _check_tiling(lib, key, entry: str, fields, host_tile, checked: set, what: str) -> None:
-    """Before the first bf16 launch at `key` (a head dim, or a tuple such as
+    """Before the first launch at `key` (a head dim, or a tuple such as
     T1's tiling): the library's tiling (its `entry`, called with the key's
     values) must be flash_tma's (`host_tile(*key)`), from which the launch
     geometry is computed. A key with no instantiation is left to the launch
@@ -306,6 +351,12 @@ def _check_tile(lib, d: int) -> None:
                   _tiles_checked, "forward")
 
 
+def _check_f32_tile(lib, d: int) -> None:
+    """The fp32 forward's tiling (`vx_flash_fwd_f32_tile`) against flash_tma.f32_tile."""
+    _check_tiling(lib, d, "vx_flash_fwd_f32_tile", flash_tma.F32_TILE_FIELDS,
+                  flash_tma.f32_tile, _f32_tiles_checked, "fp32 forward")
+
+
 def _check_bwd_tile(lib, d: int) -> None:
     """The backward's tiling (`vx_flash_bwd_tile`) against flash_tma.bwd_tile."""
     _check_tiling(lib, d, "vx_flash_bwd_tile", flash_tma.BWD_TILE_FIELDS, flash_tma.bwd_tile,
@@ -324,6 +375,17 @@ def _tma_geometry(b: int, lq: int, lk: int, heads: int, d: int):
 
 
 @functools.lru_cache(maxsize=256)
+def _f32_geometry(b: int, lq: int, lk: int, heads: int, d: int):
+    """flash_tma's geometry of one fp32 launch, as `vx_flash_fwd_f32` reads
+    it, once per shape; raises where TMA or the kernel cannot take it."""
+    geom = flash_tma.f32_geometry(b, lq, lk, heads, d)
+    bad = flash_tma.tma_violations(geom)
+    if bad:
+        raise ValueError("flash fp32 forward kernel cannot take this launch: " + "; ".join(bad))
+    return flash_tma.f32_geometry_arg(geom)
+
+
+@functools.lru_cache(maxsize=256)
 def _bwd_tma_geometry(b: int, lq: int, lk: int, heads: int, d: int, kernel: str):
     """flash_tma's geometry of one launch of the bf16 backward's `kernel`
     ("dkv" or "dq"), as `vx_flash_bwd_*_tma` reads it, and its parts of the
@@ -338,16 +400,16 @@ def _bwd_tma_geometry(b: int, lq: int, lk: int, heads: int, d: int, kernel: str)
 
 def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool = False, lite: bool = False):
     """csrc/flash_fwd.cu on the current stream: K1, or K2 with `lite`; bf16
-    through the TMA/wgmma kernel, fp32 through the scalar kernel. Returns
-    (out, lse or None)."""
+    through the TMA/wgmma kernel, fp32 through the split pass
+    (`launch_f32_split`) and the 3xTF32 TMA/wgmma kernel on its parts.
+    Returns (out, lse or None)."""
     _check_kernel_inputs(heads, q=q, k=k, v=v)
     b, lq, inner = q.shape
     lk, d = k.shape[1], inner // heads
     bf16 = q.dtype == torch.bfloat16
-    geom = _tma_geometry(b, lq, lk, heads, d) if bf16 else None
+    geom = (_tma_geometry if bf16 else _f32_geometry)(b, lq, lk, heads, d)
     lib = _library()
-    if bf16:
-        _check_tile(lib, d)
+    (_check_tile if bf16 else _check_f32_tile)(lib, d)
     out = torch.empty_like(q)
     lse = (torch.empty((b, heads, lq), dtype=torch.float32, device=q.device) if with_lse
            else None)
@@ -358,15 +420,33 @@ def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool = False, lite:
                                       lse_ptr, int(lite), b, heads, lq, lk, d, geom,
                                       float(scale), _stream(q))
         else:
-            rc = lib.vx_flash_fwd_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, int(lite), b,
-                heads, lq, lk, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                v.stride(0), v.stride(1), out.stride(0), out.stride(1), float(scale), _stream(q))
+            # K2's q * scale is rounded to fp32 before the split; K1's scale
+            # stays in the exponent
+            parts = launch_f32_split(q, k, v, heads, float(scale) if lite else 1.0)
+            rc = lib.vx_flash_fwd_f32(parts.data_ptr(), out.data_ptr(), lse_ptr, int(lite), b,
+                                      heads, lq, lk, d, geom, float(scale), _stream(q))
     name = "flash_lite_fwd" if lite else "flash_fwd"
     _raise_on(rc, "K2 forward" if lite else "forward")
     counts[name] += 1
     shapes[(name, b, lq, lk, d)] += 1
     return out, lse
+
+
+def launch_f32_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                     qmul: float = 1.0) -> torch.Tensor:
+    """The fp32 forward's split pass (csrc/flash_fwd.cu: `tf32_split`,
+    `tf32_split_vt`) on the current stream, into a scratch buffer allocated
+    here: `tf32_parts`' six tensors flattened one after the other. Contiguous
+    fp32 CUDA tensors as `_launch_fwd` checks them."""
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    parts = torch.empty(2 * q.numel() + 4 * k.numel(), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _library().vx_flash_fwd_f32_split(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                               parts.data_ptr(), b, heads, lq, lk, d,
+                                               float(qmul), _stream(q))
+    _raise_on(rc, "fp32 split")
+    return parts
 
 
 def launch_lite(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,

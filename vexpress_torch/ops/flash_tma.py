@@ -1,8 +1,8 @@
 """Host-side geometry of the bf16 forward kernel, csrc/flash_fwd_wgmma.cuh
-(K1 and K2 on the card): the TMA tensor maps, the padded head dim, the grid
-and the shared memory of one launch. `flash.py` passes it to
-`vx_flash_fwd_tma` (csrc/flash_fwd.cu), which encodes the maps from it; the
-CPU tests hold it to TMA's rules at every main-path shape. `tile` is the
+(K1 and K2 on the card), and of the others below: the TMA tensor maps, the
+padded head dim, the grid and the shared memory of one launch. `flash.py`
+passes it to `vx_flash_fwd_tma` (csrc/flash_fwd.cu), which encodes the maps
+from it; the CPU tests hold it to TMA's rules at every main-path shape. `tile` is the
 tiling per head dim that csrc/flash_fwd_wgmma.cuh's WgmmaTile also sets; the
 library reports its own through `vx_flash_fwd_tile`, and flash.py checks the
 two against each other before a head dim's first launch.
@@ -21,6 +21,10 @@ packed (B, L, H*D) one, so the byte strides always rise with the dimension;
 `row_dim` says where the rows are, and the kernel orders its box coordinates
 by it. `variant_tile` is what the library reports through
 `vx_flash_fwd_variant_tile` and `vx_splash_mha_tile`.
+
+The fp32 forward (csrc/flash_fwd_tf32.cuh, 3xTF32) reads tf32 parts of q, k
+and v that a split pass writes, through the maps of `f32_geometry`, at the
+tiling `f32_tile` that `vx_flash_fwd_f32_tile` reports.
 
 The backward's kernels (csrc/flash_bwd_wgmma.cuh, bf16 at D=40, 80 and 160)
 read the same 4-D views in boxes of their ring tiles' rows (`bwd_geometry`:
@@ -93,10 +97,11 @@ def tile(d: int) -> dict:
                 stages=STAGES)
 
 
-def _tensor_map(b: int, length: int, heads: int, d: int, rows: int, swizzle: int) -> dict:
+def _tensor_map(b: int, length: int, heads: int, d: int, rows: int, swizzle: int,
+                elem: int = ELEM) -> dict:
     return dict(dims=(d, heads, length, b),
-                strides=(d * ELEM, heads * d * ELEM, length * heads * d * ELEM),
-                box=(swizzle // 2, 1, rows, 1))
+                strides=(d * elem, heads * d * elem, length * heads * d * elem),
+                box=(swizzle // elem, 1, rows, 1))
 
 
 def fwd_geometry(b: int, lq: int, lk: int, heads: int, d: int) -> dict:
@@ -118,6 +123,8 @@ def _instantiated(geom: dict) -> bool:
     d, sw, kernel = geom["head_dim"], geom["swizzle"], geom["kernel"]
     if kernel in VARIANT_TILES:
         return d == VARIANT_HEAD_DIM and sw == VARIANT_SWIZZLE
+    if kernel == "f32":
+        return d in F32_TILES and F32_TILES[d][0] == sw
     return (SWIZZLE if kernel == "fwd" else BWD_SWIZZLE).get(d) == sw
 
 
@@ -127,21 +134,24 @@ def tma_violations(geom: dict) -> List[str]:
     must also rise with the dimension (each map is in its tensor's memory
     order)."""
     bad = []
-    sw = geom["swizzle"]
+    sw, elem = geom["swizzle"], geom.get("elem", ELEM)
     if not _instantiated(geom):
         bad.append(f"no instantiation for D={geom['head_dim']} at swizzle {sw}")
-    for name in ("q", "kv"):
+    for name in ("q", "kv", "vt"):
+        if name not in geom:
+            continue
         m = geom[name]
+        sw = m.get("swizzle", geom["swizzle"])
         if not all(0 < n < 2**32 for n in m["dims"]):
             bad.append(f"{name}: dims {m['dims']} outside (0, 2^32)")
         if any(s % 16 or not 0 < s < 2**40 for s in m["strides"]):
             bad.append(f"{name}: byte strides {m['strides']} not multiples of 16 below 2^40")
-        if list(m["strides"]) != sorted(m["strides"]) or m["strides"][0] < m["dims"][0] * ELEM:
+        if list(m["strides"]) != sorted(m["strides"]) or m["strides"][0] < m["dims"][0] * elem:
             bad.append(f"{name}: byte strides {m['strides']} do not rise with the dimension "
                        f"(not the tensor's memory order)")
         if any(not 0 < n <= 256 for n in m["box"]):
             bad.append(f"{name}: box {m['box']} outside (0, 256]")
-        row_bytes = m["box"][0] * ELEM
+        row_bytes = m["box"][0] * elem
         if row_bytes % 16 or row_bytes > sw:
             bad.append(f"{name}: box rows of {row_bytes} bytes, not a multiple of 16 within "
                        f"the {sw}-byte swizzle span")
@@ -157,6 +167,10 @@ def tma_violations(geom: dict) -> List[str]:
             bad.append(f"Lq={lq}, Lk={lk} not whole tiles of {bq} queries and {bk} keys")
         if (b * h) % hb:
             bad.append(f"B*H={b * h} not whole blocks of {hb} (batch, head) pairs")
+    elif geom["kernel"] == "f32":
+        lk, bk = geom["kv"]["dims"][2], geom["kv"]["box"][2]
+        if lk % bk:
+            bad.append(f"Lk={lk} not whole tiles of {bk} keys")
     elif geom["kernel"] != "fwd":
         walked = geom["q"]["dims"][2] // BWD_WG_ROWS  # 64-row query tiles the dk/dv parts share
         if not 1 <= geom["grid"][2] <= (walked if geom["kernel"] == "dkv" else 1):
@@ -352,4 +366,70 @@ def bwd_geometry_arg(geom: dict):
     q, kv = geom["q"], geom["kv"]
     vals = [geom["swizzle"], q["box"][0], q["box"][2], *geom["grid"], geom["smem"], *q["dims"],
             *q["strides"], *kv["dims"], *kv["strides"]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+# ---------------------------------------------------------------------- fp32
+# The fp32 forward (K1's and K2's fp32 variants; csrc/flash_fwd_tf32.cuh) on
+# the TF32 tensor cores: the split pass writes each of q, k and v as tf32 hi
+# and lo parts into a scratch buffer (v's transposed to (B, H, D, Lk)), and
+# the kernel reads the parts by TMA. Q's and K's parts are viewed as q's and
+# k's (D, H, L, B) with 4-byte elements, in chunks of swizzle / 4 columns; V^T's
+# as (Lk, D, H, B), in chunks of v_swizzle / 4 keys of D rows.
+F32_ELEM = 4
+# head dim -> (swizzle bytes of Q's and K's chunks, query rows, keys a tile)
+# (csrc/flash_fwd.cu's VX_F32): 64-byte chunks at D=40 (3 of 16 columns, 48
+# in shared memory) and D=80 (5, none padded), 128-byte at D=160 (5); 128
+# query rows (two consumer warpgroups), 64 at D=160, whose two Q parts of 128
+# rows would take 160 KiB; the widest key tile at which 3 stages fit beside Q
+F32_TILES = {40: (64, 128, 64), 80: (64, 128, 32), 160: (128, 64, 16)}
+F32_STAGES = 3
+# what `f32_tile` returns, in the order of csrc/flash_fwd.cu::vx_flash_fwd_f32_tile
+F32_TILE_FIELDS = ("swizzle", "box_cols", "v_swizzle", "v_box_cols", "tile_q", "tile_k",
+                   "blocks_per_sm", "smem", "threads", "stages")
+
+
+def f32_tile(d: int) -> dict:
+    """The fp32 kernel's tiling at head dim d, keyed by F32_TILE_FIELDS
+    (Tf32Tile in csrc/flash_fwd_tf32.cuh): shared memory holds Q's two parts
+    (ceil(d / box_cols) chunks of tile_q rows), F32_STAGES stages of K's two
+    parts and V^T's two parts (tile_k / v_box_cols chunks of d rows), the
+    mbarriers and 1024 bytes of alignment slack. A head dim with no
+    instantiation gets 128-byte chunks, which `tma_violations` then names."""
+    sw, bq, bk = F32_TILES.get(d, (128, 128, 64))
+    cw, swv = sw // F32_ELEM, min(128, bk * F32_ELEM)
+    cwv = swv // F32_ELEM
+    chunks = -(-d // cw)
+    q_part, k_part, v_part = chunks * bq * sw, chunks * bk * sw, bk // cwv * d * swv
+    smem = (2 * q_part + F32_STAGES * (2 * k_part + 2 * v_part) + 8 * (2 * F32_STAGES + 1)
+            + 1024)
+    return dict(swizzle=sw, box_cols=cw, v_swizzle=swv, v_box_cols=cwv, tile_q=bq, tile_k=bk,
+                blocks_per_sm=1, smem=smem, threads=128 * (bq // 64 + 1), stages=F32_STAGES)
+
+
+def f32_geometry(b: int, lq: int, lk: int, heads: int, d: int) -> dict:
+    """Everything the host sets for one launch of the fp32 kernel: the maps
+    of Q's parts (q's layout), K's (k's) and V^T's ((B, H, D, Lk)), the grid
+    (ceil(Lq / tile_q), B*H), the shared memory; and the scratch floats of
+    the parts (2 of q's size, 4 of k's)."""
+    t = f32_tile(d)
+    sw, swv, e = t["swizzle"], t["v_swizzle"], F32_ELEM
+    return dict(kernel="f32", elem=e, swizzle=sw, head_dim=d, chunks=-(-d // t["box_cols"]),
+                q=_tensor_map(b, lq, heads, d, t["tile_q"], sw, e),
+                kv=_tensor_map(b, lk, heads, d, t["tile_k"], sw, e),
+                vt=dict(dims=(lk, d, heads, b), strides=(lk * e, d * lk * e, heads * d * lk * e),
+                        box=(t["v_box_cols"], d, 1, 1), row_dim=1, swizzle=swv),
+                grid=(-(-lq // t["tile_q"]), b * heads), threads=t["threads"], smem=t["smem"],
+                blocks_per_sm=1, scratch_floats=2 * b * lq * heads * d + 4 * b * lk * heads * d)
+
+
+def f32_geometry_arg(geom: dict):
+    """The int64 array `vx_flash_fwd_f32` reads: swizzle and box columns of
+    Q and K, of V^T, query rows and keys a tile, grid x and y, shared memory,
+    then the dims and byte strides of Q's, K's and V^T's maps."""
+    q, kv, vt = geom["q"], geom["kv"], geom["vt"]
+    vals = [geom["swizzle"], q["box"][0], vt["swizzle"], vt["box"][0], q["box"][2],
+            kv["box"][2], *geom["grid"], geom["smem"]]
+    for m in (q, kv, vt):
+        vals += [*m["dims"], *m["strides"]]
     return (ctypes.c_longlong * len(vals))(*vals)
