@@ -7,19 +7,22 @@ Phases, in order; any failure raises and the script exits non-zero:
   card          the card's name and power limit (nvidia-smi)
   build         nvcc builds every kernel from the sources in the checkout
   sass          the wgmma kernels' SASS (K1's and K2's forward in bf16 and in
-                fp32, T1's, T2's, the backward pair) holds HGMMA (wgmma; on
-                TF32 in the fp32 kernels), UTMALDG (TMA loads) and MUFU.EX2,
-                and no more wgmma waits than its code
+                fp32, T1's, T2's, the backward pair in bf16 and in fp32)
+                holds HGMMA (wgmma; on TF32 in the fp32 kernels), UTMALDG
+                (TMA loads) and MUFU.EX2, and no more wgmma waits than its
+                code; the fp32 backward's no local-memory spill
   kernel        each kernel at the main paths' shapes against its plain
                 version: K1's forward and K2 (VEXPRESS_FLASH_LITE's bf16-exp
                 forward, also against exact fp32 attention) at the inference
                 shapes, window_group 1 and 2, and in fp32 (3xTF32) at the
                 first four and at D=160;
                 at the training shapes of stage 2 and stage 3, at 512x512
-                and at 1024x1024's D=160 level, K1 with its gradient
+                and at 1024x1024's D=160 level, and in fp32 (3xTF32) at
+                stage 2's, K1 with its gradient
                 (forward with log-sum-exp, dk/dv and dq kernels) through
-                FlashAttention, with SDPA's backward alone and the di
-                reduction timed beside them and stage 3's and 1024x1024's
+                FlashAttention, with SDPA's backward alone, the di
+                reduction and in fp32 the backward's split pass timed beside
+                them, and stage 3's, 1024x1024's and fp32's
                 backward launches reckoned; times of each kernel, its plain version, one
                 PyTorch library call (a yardstick only), K1 beside K2 on the
                 same inputs, and the card's bound; at
@@ -121,10 +124,9 @@ N_SMS, EX2_PER_CLK = 132, 16  # H100 SXM: SMs, ex2 results a clock on one SM (MU
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s
 # fp32-level products on the tensor cores: the fp32 kernels' bound. K1's fp32
-# forward takes each product as three TF32 products (3xTF32); K2's, whose p
-# is bf16-valued, takes S's as three and P V's as two, 2.5 on average. The
-# fp32 backward is scalar, but its rows are bound at the same rate, the least
-# time its redesign could reach.
+# forward and backward take each product as three TF32 products (3xTF32);
+# K2's, whose p is bf16-valued, takes S's as three and P V's as two, 2.5 on
+# average.
 PEAK_3XTF32 = PEAK_TF32 / 3
 PEAK_K2_TF32 = PEAK_TF32 / 2.5
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -202,6 +204,12 @@ TRAIN_K1_EXTRA = [
     ("fp32 D=40", 4, 1024, 1024, 80, 2, "float32"),
     ("bf16 D=160", 2, 1024, 1024, 1280, 8, "bfloat16"),
 ]
+# K1 with its gradient in fp32 (the training CLI's --dtype fp32, or a config
+# without mixed precision) at stage 2's four shapes at 512x512 and its D=160
+# pair at 1024x1024; not run end to end at full width, their launches a step
+# are stage 2's, reckoned
+TRAIN_K1_FP32 = [("fp32 " + n, b, lq, lk, i, h, "float32")
+                 for n, b, lq, lk, i, h in TRAIN_K1_SHAPES + HIRES_K1_SHAPES[:2]]
 
 
 class PhaseError(RuntimeError):
@@ -294,21 +302,27 @@ WGMMA_WAITS = 5
 # kernels of each wgmma family in the library (a part of their mangled
 # names): K1 and K2 at 3 head dims in bf16 and in fp32 (flash_fwd_tf32, every
 # HGMMA on TF32), T1's 9 and T2's 3 tilings, the backward pair at D=40, 80
-# and 160; each with at most WGMMA_WAITS fixed waits
+# and 160 in bf16 and in fp32 (flash_bwd_*_tf32, every HGMMA on TF32); each
+# with at most WGMMA_WAITS fixed waits
 SASS_FAMILIES = {"flash_fwd_wgmma": 6, "flash_fwd_tf32": 6, "flash_fwd_variant_wgmma": 9,
-                 "splash_fwd_wgmma": 3, "flash_bwd_dkv_wgmma": 3, "flash_bwd_dq_wgmma": 3}
-TF32_FAMILIES = ("flash_fwd_tf32",)
-SASS_OPS = ("HGMMA", "F32.TF32", "UTMALDG", "MUFU.EX2", "HMMA", "WARPGROUP.DEPBAR")
+                 "splash_fwd_wgmma": 3, "flash_bwd_dkv_wgmma": 3, "flash_bwd_dq_wgmma": 3,
+                 "flash_bwd_dkv_tf32": 3, "flash_bwd_dq_tf32": 3}
+TF32_FAMILIES = ("flash_fwd_tf32", "flash_bwd_dkv_tf32", "flash_bwd_dq_tf32")
+# the fp32 backward's kernels spill nothing: no local-memory store or load
+NO_SPILL_FAMILIES = ("flash_bwd_dkv_tf32", "flash_bwd_dq_tf32")
+SASS_OPS = ("HGMMA", "F32.TF32", "UTMALDG", "MUFU.EX2", "HMMA", "WARPGROUP.DEPBAR", "STL", "LDL")
 
 
 def sass_phase() -> dict:
     """The built library's wgmma kernels (K1's and K2's forward in bf16,
     flash_fwd_wgmma, and in fp32, flash_fwd_tf32; T1's,
     flash_fwd_variant_wgmma; T2's, splash_fwd_wgmma; and the backward pair,
-    flash_bwd_dkv_wgmma and flash_bwd_dq_wgmma) hold HGMMA and UTMALDG in
+    flash_bwd_dkv_wgmma and flash_bwd_dq_wgmma, and in fp32
+    flash_bwd_dkv_tf32 and flash_bwd_dq_tf32) hold HGMMA and UTMALDG in
     their SASS (the fp32 kernels' every HGMMA on TF32), their exps are on
     MUFU.EX2, and each holds no more WARPGROUP.DEPBAR than the fixed waits
-    its code issues (ptxas adds one after every wgmma it serialises)."""
+    its code issues (ptxas adds one after every wgmma it serialises); the
+    fp32 backward's kernels spill nothing (no STL or LDL)."""
     from vexpress_torch.ops import flash
     from vexpress_torch.tools.ptxas_report import sass_ops
 
@@ -317,6 +331,7 @@ def sass_phase() -> dict:
     ok = all(len(found[p]) == n and all({"HGMMA", "UTMALDG", "MUFU.EX2"} <= set(o)
                                         and o["WARPGROUP.DEPBAR"] <= WGMMA_WAITS
                                         and (o["F32.TF32"] == o["HGMMA"]) == (p in TF32_FAMILIES)
+                                        and not (p in NO_SPILL_FAMILIES and (o["STL"] or o["LDL"]))
                                         for o in found[p].values())
              for p, n in SASS_FAMILIES.items())
     for part, ops in found.items():
@@ -325,7 +340,7 @@ def sass_phase() -> dict:
             + "; ".join(f"{n}: {dict(sorted(o.items()))}" for n, o in sorted(ops.items())))
     if not ok:
         raise PhaseError(f"a wgmma kernel lacks wgmma (on TF32 in fp32), TMA or ex2 in its SASS, "
-                         f"or holds more than {WGMMA_WAITS} wgmma waits: {found}")
+                         f"holds more than {WGMMA_WAITS} wgmma waits, or spills: {found}")
     return dict(kernels={n: dict(o) for ops in found.values() for n, o in ops.items()})
 
 
@@ -577,19 +592,34 @@ def bwd_kernel_times(torch, q, k, v, do, out, lse, heads) -> dict:
     """K1's backward at one shape of packed (B, L, H*D) inputs, each part
     timed alone: the dk/dv kernel, the dq kernel, the plain di reduction
     (`flash.bwd_di`) and, as a yardstick, SDPA's backward alone from one saved
-    forward (its own di included). `out` and `lse` are K1's forward's."""
+    forward (its own di included). In fp32 the 3xTF32 kernels are timed on
+    one split pass's parts, dk/dv on the dq kernel's log-sum-exp, and the
+    split pass beside them (`split_ms`); another checkout's kernels without
+    that split (bench_flash_bwd on a parent) are timed through `launch_bwd`.
+    `out` and `lse` are K1's forward's."""
     import torch.nn.functional as F
     from vexpress_torch.ops import flash
 
     d = q.shape[-1] // heads
     scale = d**-0.5
     di = flash.bwd_di(do, out, heads)
-    times = dict(
-        di_ms=cuda_time_ms(torch, lambda: flash.bwd_di(do, out, heads)),
-        dkv_ms=cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
-                                                            need_dq=False)),
-        dq_ms=cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads, scale,
-                                                           need_dkv=False)))
+    times = dict(di_ms=cuda_time_ms(torch, lambda: flash.bwd_di(do, out, heads)))
+    if q.dtype == torch.float32 and hasattr(flash, "launch_f32_dq"):
+        parts = flash.launch_f32_bwd_split(q, k, v, do, heads)
+        lse_dkv = torch.empty_like(lse)
+        times.update(
+            split_ms=cuda_time_ms(torch, lambda: flash.launch_f32_bwd_split(q, k, v, do, heads)),
+            dq_ms=cuda_time_ms(torch, lambda: flash.launch_f32_dq(parts, q, k, lse, di, heads,
+                                                                  scale, lse_dkv)),
+            dkv_ms=cuda_time_ms(torch, lambda: flash.launch_f32_dkv(parts, q, k, lse_dkv, di,
+                                                                    heads, scale)))
+        del parts
+    else:
+        times.update(
+            dkv_ms=cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads,
+                                                                scale, need_dq=False)),
+            dq_ms=cuda_time_ms(torch, lambda: flash.launch_bwd(q, k, v, do, lse, di, heads,
+                                                               scale, need_dkv=False)))
     qh, kh, vh, doh = (x.reshape(x.shape[0], x.shape[1], heads, d).transpose(1, 2).contiguous()
                        for x in (q, k, v, do))
     qh, kh, vh = (x.requires_grad_() for x in (qh, kh, vh))
@@ -601,21 +631,22 @@ def bwd_kernel_times(torch, q, k, v, do, out, lse, heads) -> dict:
 
 def grad_kernel_rows(torch, gen) -> list:
     """K1 with its gradient at every training shape of stages 2 and 3, at
-    512x512 and at 1024x1024's D=160 level: flash_sdpa on inputs that require
-    a gradient (FlashAttention), .backward with a fixed do; the forward's
-    output and log-sum-exp and dq, dk, dv against the fp32 plain versions;
-    then each kernel timed alone, beside the di reduction and SDPA's backward
-    alone."""
+    512x512 and at 1024x1024's D=160 level, and in fp32 at stage 2's
+    (TRAIN_K1_FP32): flash_sdpa on inputs that require a gradient
+    (FlashAttention), .backward with a fixed do; the forward's output and
+    log-sum-exp and dq, dk, dv against the fp32 plain versions; then each
+    kernel timed alone, beside the di reduction, SDPA's backward alone and,
+    in fp32, the backward's split pass."""
     import torch.nn.functional as F
     from vexpress_torch.ops import flash, flash_tma, launches
 
     dev = torch.device("cuda")
     rows = []
-    reckoned_by = {(3, 64): reckoned_bwd_launches(3, 64),
-                   (2, HIRES_LATENT): reckoned_bwd_launches(2, HIRES_LATENT),
-                   (3, HIRES_LATENT): reckoned_bwd_launches(3, HIRES_LATENT)}
+    hires_names = {n for n, *_ in HIRES_K1_SHAPES}
+    reckoned_by = {key: reckoned_bwd_launches(*key)
+                   for key in ((2, 64), (3, 64), (2, HIRES_LATENT), (3, HIRES_LATENT))}
     cases = ([(n, b, lq, lk, i, h, "bfloat16") for n, b, lq, lk, i, h in TRAIN_K1_SHAPES
-              + STAGE3_K1_SHAPES + HIRES_K1_SHAPES] + TRAIN_K1_EXTRA)
+              + STAGE3_K1_SHAPES + HIRES_K1_SHAPES] + TRAIN_K1_EXTRA + TRAIN_K1_FP32)
     for name, b, lq, lk, inner, heads, dtype_name in cases:
         dtype = getattr(torch, dtype_name)
         bf16 = dtype == torch.bfloat16
@@ -629,7 +660,8 @@ def grad_kernel_rows(torch, gen) -> list:
         out.backward(do)
         torch.cuda.synchronize()
         ran = {key: n for key, n in launches.counts.items() if n}
-        parts = flash_tma.dkv_splits(b, heads, lq, lk) if bf16 and d in flash_tma.BWD_SWIZZLE else 1
+        parts = (flash_tma.dkv_splits(b, heads, lq, lk) if bf16
+                 else flash_tma.f32_dkv_splits(b, heads, lq, lk, d))
         want = {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
         if parts > 1:
             want["flash_bwd_dkv_sum"] = 1
@@ -698,7 +730,7 @@ def grad_kernel_rows(torch, gen) -> list:
         del q, k, v, do, out_k, lse
         key = (b, lq, lk, d)
         case = (name, b, lq, lk, inner, heads)
-        latent = HIRES_LATENT if case in HIRES_K1_SHAPES else 64
+        latent = HIRES_LATENT if case in HIRES_K1_SHAPES or name[5:] in hires_names else 64
         row = dict(shape=name, dtype=dtype_name, B=b, Lq=lq, Lk=lk, H=heads, D=d,
                    main_path=bf16 and case in TRAIN_K1_SHAPES,
                    stage=3 if case in STAGE3_K1_SHAPES + HIRES_STAGE3 else 2, latent=latent,
@@ -708,9 +740,12 @@ def grad_kernel_rows(torch, gen) -> list:
                    bounds={k_: dict(ms=ms, by=by) for k_, (ms, by) in bounds.items()},
                    errors=errs, **fma)
         rows.append(row)
-        # stage 3's and 1024x1024's launches are reckoned, not run: the log
-        # line has them and the row (which the kernels line prints) has not
-        reckoning = reckoned_by.get((row["stage"], latent))
+        # stage 3's, 1024x1024's and fp32's launches are reckoned, not run:
+        # the log line has them and the row (which the kernels line prints)
+        # has not
+        reckoned_here = (row["stage"] == 3 or latent == HIRES_LATENT
+                         or (name, b, lq, lk, inner, heads, dtype_name) in TRAIN_K1_FP32)
+        reckoning = reckoned_by.get((row["stage"], latent)) if reckoned_here else None
         reckoned = {kernel: reckoning.get((kernel,) + key, 0)
                     for kernel in ("flash_bwd_dkv", "flash_bwd_dq")} if reckoning else None
         log(f"[kernel] {name} {dtype_name} B={b} Lq={lq} Lk={lk} D={d} with gradient: "
@@ -720,8 +755,8 @@ def grad_kernel_rows(torch, gen) -> list:
             f"dq {bwd['dq_ms']:.3f} ms (bound {bounds['dq'][0]:.3f}), di {bwd['di_ms']:.3f} ms, "
             f"pair bound {bounds['pair'][0]:.3f} ms"
             + (f" (at the fp32 FMA peak: fwd {fma['fma_bounds_ms']['fwd']:.3f}, dk/dv "
-               f"{fma['fma_bounds_ms']['dkv']:.3f}, dq {fma['fma_bounds_ms']['dq']:.3f})"
-               if fma else "")
+               f"{fma['fma_bounds_ms']['dkv']:.3f}, dq {fma['fma_bounds_ms']['dq']:.3f}); "
+               f"backward split pass {bwd['split_ms']:.3f} ms" if fma else "")
             + f"; sdpa bwd alone {bwd['sdpa_bwd_ms']:.3f} ms; "
             f"plain fwd {plain_fwd_ms:.3f} ms, plain bwd "
             f"{plain_bwd_ms:.3f} ms, sdpa fwd {sdpa_fwd_ms:.3f} ms, fwd+bwd "
@@ -2540,7 +2575,12 @@ def kernels_line(results: dict) -> list:
                   r["bounds"][key]["by"], max(r["errors"][g]["max_abs_err"] for g in grads))
                  for r in main_grad if r["launches"][name]]
         by_path = {p: counts[p].get(name, 0) for p in train_paths}
-        extra = dict(launches_by_path=by_path)
+        # the fp32 kernels run off the main path: on the parity phases' models
+        fp32_by = dict(train_parity=results["train_parity"]["launches"].get(name, 0),
+                       lora_parity=results["lora_parity"]["launches"].get(name, 0),
+                       **{f"dist_parity_rank{i}": r.get(name, 0)
+                          for i, r in enumerate(results["dist_parity"]["dp_launches"])})
+        extra = dict(launches_by_path=by_path, fp32_launches_by_path=fp32_by)
         if name == "flash_bwd_dkv":
             extra["split_sum_launches"] = sum(counts[p].get("flash_bwd_dkv_sum", 0)
                                               for p in train_paths)
@@ -2550,7 +2590,8 @@ def kernels_line(results: dict) -> list:
             "jax/experimental/pallas/ops/tpu/flash_attention.py" + lib_line, parts,
             sum(by_path.values()),
             sources=["vexpress_torch/csrc/flash_bwd_wgmma.cuh (bf16)",
-                     "vexpress_torch/csrc/flash_bwd.cu (launch, split sum, fp32)"],
+                     "vexpress_torch/csrc/flash_bwd_tf32.cuh (fp32, 3xTF32)",
+                     "vexpress_torch/csrc/flash_bwd.cu (launches, split sum, fp32 split pass)"],
             plain_is="flash_sdpa_bwd_reference (dq, dk and dv at once)",
             library_is="scaled_dot_product_attention's backward alone (dq, dk and dv at "
                        "once, its own di included), from one saved forward",

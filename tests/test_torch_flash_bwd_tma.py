@@ -228,7 +228,7 @@ def test_kernels_line_gives_train_full_launches_to_stage_2_rows_only():
     1024x1024's latent, and no row carries stage 3's or 1024x1024's reckoned
     launches; a stage-2 row sums the stage-2 paths, path by path and rank by
     rank; K2's line adds the sharded phase's ranks; the fp32 kernels'
-    launches (the parity phase's) stand apart."""
+    launches (the parity phases') stand apart."""
     import chip_smoke
 
     fwd = dict(B=1, Lq=4096, Lk=4096, D=40, dtype="bfloat16", main_path=True, kernel_ms=1.0,
@@ -257,6 +257,10 @@ def test_kernels_line_gives_train_full_launches_to_stage_2_rows_only():
                                               ["flash_bwd_dq"] + key + [2]]] * 2),
         cli_full=dict(lite_launches=5, lite_launches_by_shape=[key + [5]]),
         parity=dict(launches={"flash_fwd": 7}, cli=dict(launches={"flash_lite_fwd": 9})),
+        train_parity=dict(launches={"flash_fwd": 45, "flash_bwd_dkv": 45, "flash_bwd_dq": 45}),
+        lora_parity=dict(launches={"flash_fwd": 27, "flash_bwd_dkv": 27, "flash_bwd_dq": 27}),
+        dist_parity=dict(dp_launches=[{"flash_fwd": 6, "flash_bwd_dkv": 6,
+                                       "flash_bwd_dq": 6}] * 2),
         sharded=dict(lite_launches=[3, 3], lite_launches_by_shape=[[key + [3]]] * 2),
         attn_variants=dict(rows=[dict(variant, kernel="flash_fwd_variant"),
                                  dict(variant, kernel="splash_fwd")],
@@ -281,4 +285,7 @@ def test_kernels_line_gives_train_full_launches_to_stage_2_rows_only():
     assert lite["launches_by_path"] == dict(cli_full=5, sharded_rank0=3, sharded_rank1=3)
     # the fp32 kernels' launches, off the main path, apart from the main path's
     assert kernels["flash_fwd"]["fp32_launches_by_path"] == dict(parity=7)
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        assert kernels[name]["fp32_launches_by_path"] == dict(
+            train_parity=45, lora_parity=27, dist_parity_rank0=6, dist_parity_rank1=6)
     assert lite["fp32_launches_by_path"] == dict(parity_cli=9)

@@ -1,6 +1,8 @@
 """K1 with a gradient on the card: the forward with its log-sum-exp and the
 backward kernels (vexpress_torch/csrc/flash_bwd.cu; bf16 at D=40, 80 and
-160 through csrc/flash_bwd_wgmma.cuh) against their plain versions, and
+160 through csrc/flash_bwd_wgmma.cuh, fp32 through csrc/flash_bwd_tf32.cuh,
+whose own tests are tests/test_torch_flash_bwd_tf32_cuda.py) against their
+plain versions, and
 `flash_sdpa` on CUDA inputs that require a gradient; the wgmma backward at
 trailing 64-row tiles, with the query axis split, launched twice (bitwise
 equal), and its SASS. Marked `cuda`: without a CUDA device every test skips.

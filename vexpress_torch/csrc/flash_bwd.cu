@@ -15,8 +15,9 @@
 // Bound on an H100 SXM: 8*B*H*Lq*Lk*D tensor-core operations for dk/dv (S,
 // dP, dv, dk) and 6*B*H*Lq*Lk*D for dq (S, dP, dq), over about 2*(2*Lq +
 // 2*Lk)*B*H*D bytes each: far above the ~295 op/byte ridge at every
-// training shape, so operations bound both. Each kernel also recomputes P,
-// one exp per (query, key) pair on the SFUs.
+// training shape, so operations bound both (in fp32 at 495e12 / 3 FLOP/s,
+// each product taken as three TF32 products). Each kernel also recomputes
+// P, one exp per (query, key) pair on the SFUs.
 //
 // What runs where:
 // * bf16 (every head dim, D=40, 80 and 160): flash_bwd_dkv_wgmma and
@@ -34,21 +35,30 @@
 //   query axis into parts (ops/flash_tma.py::dkv_splits); each part writes
 //   fp32 partial sums into a workspace the wrapper allocates, and
 //   flash_bwd_dkv_sum adds them in part order and writes bf16.
-// * fp32 (the parity phases and the CLI's --dtype fp32): the same two loops
-//   with scalar FMAs (4 threads per row, each owning D/4 columns).
+// * fp32 (the parity phases and the CLIs' --dtype fp32, every head dim):
+//   flash_bwd_dkv_tf32 and flash_bwd_dq_tf32 (flash_bwd_tf32.cuh), 3xTF32 on
+//   the same ring with a producer warpgroup and one consumer warpgroup per
+//   64 keys or 64 queries, after a split pass (vx_flash_bwd_f32_split) that
+//   writes the operands' tf32 parts, q, do and k also transposed; dq runs
+//   first and hands dk/dv the log-sum-exp of its own logits. Tilings
+//   (VX_BWD_F32): 32-row ring tiles at D=40, 16-row at D=80 and 160; at
+//   D=160 two CTAs of a cluster on 80 columns each. The geometry comes from
+//   ops/flash_tma.py (`f32_bwd_geometry`); the query axis is split as the
+//   bf16 dk/dv's (`f32_dkv_splits`), the parts summed by flash_bwd_dkv_sum
+//   in fp32.
 // Not done yet: one kernel for the pair (dq summed across key blocks with
 // fp32 atomics, no longer deterministic).
 //
-// Layout: q, o, do, dq (B, Lq, H*D); k, v, dk, dv (B, Lk, H*D). The wgmma
-// kernels take them contiguous; the scalar ones read and write through the
-// batch and row strides given (elements; the last dim contiguous). lse and di
-// are contiguous (B, H, Lq) fp32. Lq and Lk multiples of 64, D one of 40, 80,
-// 160 (the wrapper checks). Launches go on the caller's stream, allocate
-// nothing and do not synchronise; each function returns cudaGetLastError(),
-// or a failed encode's code (vx_error_string names it).
+// Layout: q, o, do, dq (B, Lq, H*D); k, v, dk, dv (B, Lk, H*D), all
+// contiguous. lse and di are contiguous (B, H, Lq) fp32. Lq and Lk multiples
+// of 64, D one of 40, 80, 160 (the wrapper checks). Launches go on the
+// caller's stream, allocate nothing and do not synchronise; each function
+// returns cudaGetLastError(), or a failed encode's code (vx_error_string
+// names it).
 
 #include <math.h>
 
+#include "flash_bwd_tf32.cuh"
 #include "flash_bwd_wgmma.cuh"
 #include "flash_common.cuh"
 
@@ -57,186 +67,20 @@ namespace {
 using namespace vx;
 using bf16 = __nv_bfloat16;
 
-constexpr int ROWS = 64;  // keys (dk/dv) or queries (dq) per block of the scalar kernels
-
-struct BwdStrides {
-  long long q_b, q_l, k_b, k_l, v_b, v_l, do_b, do_l, dq_b, dq_l, dk_b, dk_l, dv_b, dv_l;
-};
-
-// ------------------------------------------------------------- scalar (SIMT)
-constexpr int TT = 32;  // rows of the walked axis per shared-memory tile
-
-// dk/dv: 4 threads per key, each owning D/4 columns
-template <int D>
-__global__ void __launch_bounds__(256)
-flash_bwd_dkv_simt(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ di,
-                   float* __restrict__ dk, float* __restrict__ dv, int H, int Lq, BwdStrides st,
-                   float scale, float scale_log2) {
-  constexpr int DQ = D / 4;
-  __shared__ float qs[TT][D];
-  __shared__ float dos[TT][D];
-  __shared__ float lse_s[TT];
-  __shared__ float di_s[TT];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, row = tid >> 2, part = tid & 3;
-  const long long ki = (long long)blockIdx.x * ROWS + row;
-
-  const float* qb = q + b * st.q_b + h * D;
-  const float* dob = dout + b * st.do_b + h * D;
-  const float* kp = k + b * st.k_b + ki * st.k_l + h * D + part * DQ;
-  const float* vp = v + b * st.v_b + ki * st.v_l + h * D + part * DQ;
-
-  float kr[DQ], vr[DQ], dka[DQ], dva[DQ];
-#pragma unroll
-  for (int d = 0; d < DQ; ++d) {
-    kr[d] = kp[d] * scale_log2;
-    vr[d] = vp[d];
-    dka[d] = dva[d] = 0.f;
-  }
-
-  for (int qt = 0; qt < Lq; qt += TT) {
-    __syncthreads();
-    for (int i = tid; i < TT * D; i += blockDim.x) {
-      const int r = i / D, c = i % D;
-      qs[r][c] = qb[(long long)(qt + r) * st.q_l + c];
-      dos[r][c] = dob[(long long)(qt + r) * st.do_l + c];
-    }
-    for (int i = tid; i < TT; i += blockDim.x) {
-      lse_s[i] = lse[(long long)bh * Lq + qt + i] * LOG2E;
-      di_s[i] = di[(long long)bh * Lq + qt + i];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < TT; ++j) {
-      float a = 0.f, e = 0.f;
-#pragma unroll
-      for (int d = 0; d < DQ; ++d) {
-        a = fmaf(kr[d], qs[j][part * DQ + d], a);
-        e = fmaf(vr[d], dos[j][part * DQ + d], e);
-      }
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      e += __shfl_xor_sync(0xffffffffu, e, 1);
-      e += __shfl_xor_sync(0xffffffffu, e, 2);
-      const float p = exp2f(a - lse_s[j]);
-      const float ds = p * (e - di_s[j]);
-#pragma unroll
-      for (int d = 0; d < DQ; ++d) {
-        dva[d] = fmaf(p, dos[j][part * DQ + d], dva[d]);
-        dka[d] = fmaf(ds, qs[j][part * DQ + d], dka[d]);
-      }
-    }
-  }
-
-  float* dkp = dk + b * st.dk_b + ki * st.dk_l + h * D + part * DQ;
-  float* dvp = dv + b * st.dv_b + ki * st.dv_l + h * D + part * DQ;
-#pragma unroll
-  for (int d = 0; d < DQ; ++d) {
-    dkp[d] = dka[d] * scale;
-    dvp[d] = dva[d];
-  }
-}
-
-// dq: 4 threads per query row, each owning D/4 columns
-template <int D>
-__global__ void __launch_bounds__(256)
-flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ di,
-                  float* __restrict__ dq, int H, int Lq, int Lk, BwdStrides st, float scale,
-                  float scale_log2) {
-  constexpr int DQ = D / 4;
-  __shared__ float ks[TT][D];
-  __shared__ float vs[TT][D];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, row = tid >> 2, part = tid & 3;
-  const long long qi = (long long)blockIdx.x * ROWS + row;
-
-  const float* kb = k + b * st.k_b + h * D;
-  const float* vb = v + b * st.v_b + h * D;
-  const float* qp = q + b * st.q_b + qi * st.q_l + h * D + part * DQ;
-  const float* dop = dout + b * st.do_b + qi * st.do_l + h * D + part * DQ;
-  const float lse2 = lse[(long long)bh * Lq + qi] * LOG2E;
-  const float dii = di[(long long)bh * Lq + qi];
-
-  float qr[DQ], dor[DQ], dqa[DQ];
-#pragma unroll
-  for (int d = 0; d < DQ; ++d) {
-    qr[d] = qp[d] * scale_log2;
-    dor[d] = dop[d];
-    dqa[d] = 0.f;
-  }
-
-  for (int kt = 0; kt < Lk; kt += TT) {
-    __syncthreads();
-    for (int i = tid; i < TT * D; i += blockDim.x) {
-      const int r = i / D, c = i % D;
-      ks[r][c] = kb[(long long)(kt + r) * st.k_l + c];
-      vs[r][c] = vb[(long long)(kt + r) * st.v_l + c];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < TT; ++j) {
-      float a = 0.f, e = 0.f;
-#pragma unroll
-      for (int d = 0; d < DQ; ++d) {
-        a = fmaf(qr[d], ks[j][part * DQ + d], a);
-        e = fmaf(dor[d], vs[j][part * DQ + d], e);
-      }
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      e += __shfl_xor_sync(0xffffffffu, e, 1);
-      e += __shfl_xor_sync(0xffffffffu, e, 2);
-      const float ds = exp2f(a - lse2) * (e - dii);
-#pragma unroll
-      for (int d = 0; d < DQ; ++d) dqa[d] = fmaf(ds, ks[j][part * DQ + d], dqa[d]);
-    }
-  }
-
-  float* dqp = dq + b * st.dq_b + qi * st.dq_l + h * D + part * DQ;
-#pragma unroll
-  for (int d = 0; d < DQ; ++d) dqp[d] = dqa[d] * scale;
-}
-
-// fp32, at any D the wrapper takes
-template <int D>
-void launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                const float* di, void* dk, void* dv, int B, int H, int Lq, int Lk,
-                const BwdStrides& st, float scale, cudaStream_t s) {
-  flash_bwd_dkv_simt<D><<<dim3(Lk / ROWS, B * H), 256, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv),
-      H, Lq, st, scale, scale * LOG2E);
-}
-
-template <int D>
-void launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* di, void* dq, int B, int H, int Lq, int Lk, const BwdStrides& st,
-               float scale, cudaStream_t s) {
-  flash_bwd_dq_simt<D><<<dim3(Lq / ROWS, B * H), 256, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), H, Lq, Lk, st, scale,
-      scale * LOG2E);
-}
-
-BwdStrides strides_from(const long long* s) {
-  return BwdStrides{s[0], s[1], s[2],  s[3],  s[4],  s[5],  s[6],
-                    s[7], s[8], s[9], s[10], s[11], s[12], s[13]};
-}
-
 // ------------------------------------------------------- bf16 wgmma (TMA)
-// dk, dv (bf16) = the sum of the dk/dv kernel's `parts` fp32 partial sums
-// (ws: part p's dk at p*n, its dv at (parts+p)*n), added in part order, so
-// the result does not depend on the schedule; n a multiple of 4
+// four fp32 sums into dst (bf16 or fp32)
+__device__ __forceinline__ void store4(bf16* dst, float4 x) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+__device__ __forceinline__ void store4(float* dst, float4 x) { *reinterpret_cast<float4*>(dst) = x; }
+
+// dk, dv (bf16 or fp32) = the sum of the dk/dv kernel's `parts` fp32
+// partial sums (ws: part p's dk at p*n, its dv at (parts+p)*n), added in
+// part order, so the result does not depend on the schedule; n a multiple of 4
+template <typename O>
 __global__ void __launch_bounds__(256)
-flash_bwd_dkv_sum(const float* __restrict__ ws, int parts, long long n, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv) {
+flash_bwd_dkv_sum(const float* __restrict__ ws, int parts, long long n, O* __restrict__ dk,
+                  O* __restrict__ dv) {
   const long long n4 = n / 4;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < 2 * n4;
        i += (long long)gridDim.x * blockDim.x) {
@@ -251,9 +95,17 @@ flash_bwd_dkv_sum(const float* __restrict__ ws, int parts, long long n, bf16* __
       acc.z += x.z;
       acc.w += x.w;
     }
-    *reinterpret_cast<uint2*>((is_v ? dv : dk) + 4 * e) =
-        make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+    store4((is_v ? dv : dk) + 4 * e, acc);
   }
+}
+
+// flash_bwd_dkv_sum over n elements of dk and of dv on stream s
+template <typename O>
+int launch_dkv_sum(const float* ws, int parts, long long n, O* dk, O* dv, cudaStream_t s) {
+  const long long blocks = (2 * (n / 4) + 255) / 256;
+  flash_bwd_dkv_sum<O><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(ws, parts, n, dk,
+                                                                                 dv);
+  return (int)cudaGetLastError();
 }
 
 // `geom` (ops/flash_tma.py::bwd_geometry_arg): swizzle bytes, box columns,
@@ -293,11 +145,9 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
                 parts > 1 ? ws : nullptr, H, Lq, Lk, scale, scale * LOG2E);
   rc = (int)cudaGetLastError();
   if (rc != 0 || parts == 1) return rc;
-  const long long n = geom[4] * Lk * D;  // B*H*Lk*D elements of dk (and of dv)
-  const long long blocks = (2 * (n / 4) + 255) / 256;
-  flash_bwd_dkv_sum<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
-      ws, (int)parts, n, static_cast<bf16*>(dk), static_cast<bf16*>(dv));
-  return (int)cudaGetLastError();
+  // B*H*Lk*D elements of dk (and of dv)
+  return launch_dkv_sum(ws, (int)parts, geom[4] * Lk * D, static_cast<bf16*>(dk),
+                        static_cast<bf16*>(dv), s);
 }
 
 template <int D, int SW>
@@ -324,45 +174,206 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dou
 // the two agree.
 #define VX_BWD_WGMMA(X) X(40, 128) X(80, 128) X(160, 64)
 
-}  // namespace
+// ------------------------------------------------------- fp32 (TMA, tf32)
+// the fp32 backward's parts in the scratch buffer (ops/flash.py::
+// tf32_bwd_parts' order): of q's size q hi, q lo, do hi, do lo, then q^T
+// hi, q^T lo, do^T hi, do^T lo (transposed, 8-row groups in perm_key's
+// order); of k's size k hi, k lo, v hi, v lo, then k^T hi, k^T lo
+enum { QH, QL, DOH, DOL, QTH, QTL, DOTH, DOTL, KH, KL, VH, VL, KTH, KTL, N_PARTS };
 
-extern "C" {
+struct Tf32BwdParts {
+  float* p[N_PARTS];
+  Tf32BwdParts(void* parts, long long nq, long long nk) {
+    float* x = static_cast<float*>(parts);
+    for (int i = 0; i < KH; ++i) p[i] = x + i * nq;
+    for (int i = KH; i < N_PARTS; ++i) p[i] = x + KH * nq + (i - KH) * nk;
+  }
+};
 
-// fp32. `strides` holds 14 element strides: (batch, row) of q, k, v, do, dq,
-// dk, dv in that order. lse, di: (B, H, Lq) fp32, contiguous.
-int vx_flash_bwd_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* di, void* dk, void* dv, int B, int H,
-                         int Lq, int Lk, int D, const long long* strides, float scale,
-                         void* stream) {
-  if (!vx::flash_shape_ok(B, H, Lq, Lk)) return (int)cudaErrorInvalidValue;
-  const BwdStrides st = strides_from(strides);
-  const float* l = static_cast<const float*>(lse);
-  const float* d = static_cast<const float*>(di);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 40: launch_dkv<40>(q, k, v, dout, l, d, dk, dv, B, H, Lq, Lk, st, scale, s); break;
-    case 80: launch_dkv<80>(q, k, v, dout, l, d, dk, dv, B, H, Lq, Lk, st, scale, s); break;
-    case 160: launch_dkv<160>(q, k, v, dout, l, d, dk, dv, B, H, Lq, Lk, st, scale, s); break;
-    default: return (int)cudaErrorInvalidValue;
+// `geom` (ops/flash_tma.py::f32_bwd_geometry_arg): D, CTAs a cluster, ring
+// rows, stages, grid x, y and z (dk/dv's query parts; 1 for dq), dynamic
+// shared memory bytes, then the dims and byte strides of the maps of the
+// row-major parts of q's size (D, H, Lq, B) and of k's size (D, H, Lk, B),
+// and of the transposed parts of q's size (Lq, D, H, B) and of k's (Lk, D,
+// H, B). Encodes `maps`: the fixed operands' parts (`fixed`, 64-row boxes),
+// the streamed ones' (`ring`, R rows) and the transposed ones' (`tr`, R
+// columns by DH rows), dims and strides from geom at the offsets given.
+template <class T>
+int tf32_bwd_maps(BwdMaps& maps, const float* const (&fixed)[4], const float* const (&ring)[4],
+                  const float* const* tr, int n_tr, const long long* g_fixed,
+                  const long long* g_ring, const long long* g_tr) {
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int rc = 0;
+  for (int i = 0; i < 4 && rc == 0; ++i)
+    rc = encode(&maps.m[i], fixed[i], g_fixed, g_fixed + 4, T::CW, T::ROWS, T::SW, 2, F32);
+  for (int i = 0; i < 4 && rc == 0; ++i)
+    rc = encode(&maps.m[4 + i], ring[i], g_ring, g_ring + 4, T::CW, T::R, T::SW, 2, F32);
+  for (int i = 0; i < n_tr && rc == 0; ++i)
+    rc = encode(&maps.m[8 + i], tr[i], g_tr, g_tr + 4, T::R, T::DH, T::SWT, 1, F32);
+  return rc;
+}
+
+// whether geom's header is T's at grid x `grid_x`
+template <class T>
+bool tf32_geom_ok(const long long* geom, long long grid_x) {
+  return geom[0] == T::D && geom[1] == T::CL && geom[2] == T::R && geom[3] == T::STAGES &&
+         geom[4] == grid_x && geom[5] > 0 && geom[5] <= 65535 && geom[7] == T::SMEM;
+}
+
+// `kernel` on `grid`, in clusters of T::CL CTAs along x
+template <class T, typename K>
+int launch_tf32_bwd(K kernel, dim3 grid, const BwdMaps& maps, const Tf32BwdArgs& a,
+                    std::atomic<unsigned long long>& smem_set, cudaStream_t s) {
+  int rc = set_smem_once(kernel, T::SMEM, smem_set);
+  if (rc != 0) return rc;
+  if constexpr (T::CL == 1) {
+    kernel<<<grid, TF32_BWD_THREADS, T::SMEM, s>>>(maps, a);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(TF32_BWD_THREADS);
+    cfg.dynamicSmemBytes = T::SMEM;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = T::CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    rc = (int)cudaLaunchKernelEx(&cfg, kernel, maps, a);
+    if (rc != 0) return rc;
   }
   return (int)cudaGetLastError();
 }
 
-int vx_flash_bwd_dq_f32(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* di, void* dq, int B, int H, int Lq, int Lk,
-                        int D, const long long* strides, float scale, void* stream) {
+template <int D, int CL, int R, int NS>
+int launch_dkv_tf32(const Tf32BwdParts& p, const float* lse, const float* di, float* dk,
+                    float* dv, float* ws, int H, int Lq, int Lk, const long long* geom,
+                    float scale, cudaStream_t s) {
+  using T = Tf32BwdTile<D, CL, R, NS, 2>;
+  const long long parts = geom[6];
+  if (!tf32_geom_ok<T>(geom, (long long)Lk / T::ROWS * CL) || parts < 1 || parts > Lq / R ||
+      (parts > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  BwdMaps maps;
+  const float* const fixed[4] = {p.p[KH], p.p[KL], p.p[VH], p.p[VL]};
+  const float* const ring[4] = {p.p[QH], p.p[QL], p.p[DOH], p.p[DOL]};
+  const float* const tr[4] = {p.p[QTH], p.p[QTL], p.p[DOTH], p.p[DOTL]};
+  int rc = tf32_bwd_maps<T>(maps, fixed, ring, tr, 4, geom + 15, geom + 8, geom + 22);
+  if (rc != 0) return rc;
+  static std::atomic<unsigned long long> smem_set{0};
+  const Tf32BwdArgs a{lse, di, dk, dv, parts > 1 ? ws : nullptr, H, Lq, Lk, scale,
+                      scale * LOG2E};
+  rc = launch_tf32_bwd<T>(flash_bwd_dkv_tf32<T>,
+                          dim3((unsigned)geom[4], (unsigned)geom[5], (unsigned)parts), maps, a,
+                          smem_set, s);
+  if (rc != 0 || parts == 1) return rc;
+  return launch_dkv_sum(ws, (int)parts, geom[5] * Lk * D, dk, dv, s);
+}
+
+template <int D, int CL, int R, int NS>
+int launch_dq_tf32(const Tf32BwdParts& p, const float* lse, const float* di, float* dq,
+                   float* lse_out, int H, int Lq, int Lk, const long long* geom, float scale,
+                   cudaStream_t s) {
+  using T = Tf32BwdTile<D, CL, R, NS, 1>;
+  if (!tf32_geom_ok<T>(geom, (long long)Lq / T::ROWS * CL) || geom[6] != 1)
+    return (int)cudaErrorInvalidValue;
+  BwdMaps maps;
+  const float* const fixed[4] = {p.p[QH], p.p[QL], p.p[DOH], p.p[DOL]};
+  const float* const ring[4] = {p.p[KH], p.p[KL], p.p[VH], p.p[VL]};
+  const float* const tr[2] = {p.p[KTH], p.p[KTL]};
+  int rc = tf32_bwd_maps<T>(maps, fixed, ring, tr, 2, geom + 8, geom + 15, geom + 29);
+  if (rc != 0) return rc;
+  static std::atomic<unsigned long long> smem_set{0};
+  const Tf32BwdArgs a{lse, di, dq, lse_out, nullptr, H, Lq, Lk, scale, scale * LOG2E};
+  return launch_tf32_bwd<T>(flash_bwd_dq_tf32<T>, dim3((unsigned)geom[4], (unsigned)geom[5]),
+                            maps, a, smem_set, s);
+}
+
+// the fp32 instantiations: (D, CTAs a cluster, dk/dv ring rows and stages,
+// dq ring rows and stages). The wrapper's table is ops/flash_tma.py::
+// F32_BWD_TILES; `vx_flash_bwd_f32_tile` lets it check the two agree.
+#define VX_BWD_F32(X) X(40, 1, 32, 3, 32, 4) X(80, 1, 16, 3, 16, 4) X(160, 2, 16, 3, 16, 4)
+
+}  // namespace
+
+extern "C" {
+
+// fp32, first call: the split pass. Writes the tf32 parts of q, do (B, Lq,
+// H*D) and k, v (B, Lk, H*D), all contiguous, into `parts` (Tf32BwdParts'
+// order; 8*B*Lq*H*D + 6*B*Lk*H*D floats, 16-byte aligned): the row-major
+// parts and k^T's (the dq kernel, which always runs, reads them), q^T's and
+// do^T's with `need_dkv`.
+int vx_flash_bwd_f32_split(const void* q, const void* k, const void* v, const void* dout,
+                           void* parts, int B, int H, int Lq, int Lk, int D, int need_dkv,
+                           void* stream) {
+  if (!vx::flash_shape_ok(B, H, Lq, Lk) || (D != 40 && D != 80 && D != 160))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long nq = (long long)B * Lq * H * D, nk = (long long)B * Lk * H * D;
+  const Tf32BwdParts p(parts, nq, nk);
+  const void* rows[4] = {q, dout, k, v};
+  const int hi[4] = {QH, DOH, KH, VH};
+  for (int i = 0; i < 4; ++i) {
+    const long long n4 = (i < 2 ? nq : nk) / 4;
+    tf32_split<<<tf32_split_blocks(n4), 256, 0, s>>>(static_cast<const float4*>(rows[i]),
+                                                     reinterpret_cast<float4*>(p.p[hi[i]]),
+                                                     reinterpret_cast<float4*>(p.p[hi[i] + 1]),
+                                                     n4, 1.f);
+  }
+  if (need_dkv) {
+    launch_split_vt(static_cast<const float*>(q), p.p[QTH], p.p[QTL], B, H, Lq, D, s);
+    launch_split_vt(static_cast<const float*>(dout), p.p[DOTH], p.p[DOTL], B, H, Lq, D, s);
+  }
+  launch_split_vt(static_cast<const float*>(k), p.p[KTH], p.p[KTL], B, H, Lk, D, s);
+  return (int)cudaGetLastError();
+}
+
+// fp32, third call: the dk/dv kernel on the parts. dk, dv contiguous (B,
+// Lk, H*D) fp32; lse the dq kernel's corrected one, di as above; `ws` null,
+// or with geom's z > 1 parts an fp32 workspace of 2 * parts * B*Lk*H*D
+// elements, 16-byte aligned.
+int vx_flash_bwd_dkv_f32(const void* parts, const void* lse, const void* di, void* dk, void* dv,
+                         void* ws, int B, int H, int Lq, int Lk, int D, const long long* geom,
+                         float scale, void* stream) {
   if (!vx::flash_shape_ok(B, H, Lq, Lk)) return (int)cudaErrorInvalidValue;
-  const BwdStrides st = strides_from(strides);
+  const Tf32BwdParts p(const_cast<void*>(parts), (long long)B * Lq * H * D,
+                       (long long)B * Lk * H * D);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 40: launch_dq<40>(q, k, v, dout, l, d, dq, B, H, Lq, Lk, st, scale, s); break;
-    case 80: launch_dq<80>(q, k, v, dout, l, d, dq, B, H, Lq, Lk, st, scale, s); break;
-    case 160: launch_dq<160>(q, k, v, dout, l, d, dq, B, H, Lq, Lk, st, scale, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+#define VX_CASE(D_, CL_, RK_, SK_, RQ_, SQ_)                                                 \
+  if (D == D_)                                                                               \
+    return launch_dkv_tf32<D_, CL_, RK_, SK_>(p, l, d, static_cast<float*>(dk),              \
+                                              static_cast<float*>(dv), static_cast<float*>(ws), \
+                                              H, Lq, Lk, geom, scale, s);
+  VX_BWD_F32(VX_CASE)
+#undef VX_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// fp32, second call: the dq kernel on the parts. dq contiguous (B, Lq, H*D)
+// fp32; lse, di as above; `lse_out` null, or a contiguous (B, H, Lq) fp32
+// buffer that receives the log-sum-exp of the kernel's own logits, which
+// the dk/dv kernel then reads (flash_bwd_tf32.cuh: P's normalisation).
+int vx_flash_bwd_dq_f32(const void* parts, const void* lse, const void* di, void* dq,
+                        void* lse_out, int B, int H, int Lq, int Lk, int D, const long long* geom,
+                        float scale, void* stream) {
+  if (!vx::flash_shape_ok(B, H, Lq, Lk)) return (int)cudaErrorInvalidValue;
+  const Tf32BwdParts p(const_cast<void*>(parts), (long long)B * Lq * H * D,
+                       (long long)B * Lk * H * D);
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(di);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VX_CASE(D_, CL_, RK_, SK_, RQ_, SQ_) \
+  if (D == D_)                               \
+    return launch_dq_tf32<D_, CL_, RQ_, SQ_>(p, l, d, static_cast<float*>(dq),          \
+                                             static_cast<float*>(lse_out), H, Lq, Lk, geom, \
+                                             scale, s);
+  VX_BWD_F32(VX_CASE)
+#undef VX_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // bf16 at D=40, 80 or 160, contiguous q, k, v, do, dk, dv; lse, di as above. `ws`:
@@ -416,6 +427,26 @@ int vx_flash_bwd_tile(int D, long long* out) {
     return 0;                                                                             \
   }
   VX_BWD_WGMMA(VX_TILE)
+#undef VX_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tiling of the fp32 backward at head dim D, in the order of
+// ops/flash_tma.py::F32_BWD_TILE_FIELDS: swizzle bytes and box columns of
+// the row-major parts, CTAs a cluster, ring rows, stages and dynamic shared
+// memory bytes of dk/dv and of dq, threads. cudaErrorInvalidValue for a D
+// with no instantiation.
+int vx_flash_bwd_f32_tile(int D, long long* out) {
+#define VX_TILE(D_, CL_, RK_, SK_, RQ_, SQ_)                                              \
+  if (D == D_) {                                                                          \
+    using K = Tf32BwdTile<D_, CL_, RK_, SK_, 2>;                                          \
+    using Q = Tf32BwdTile<D_, CL_, RQ_, SQ_, 1>;                                          \
+    const long long t[10] = {K::SW,      K::CW,  CL_,       K::R,     K::STAGES,            \
+                             K::SMEM,    Q::R,   Q::STAGES, Q::SMEM,  TF32_BWD_THREADS};    \
+    for (int i = 0; i < 10; ++i) out[i] = t[i];                                           \
+    return 0;                                                                             \
+  }
+  VX_BWD_F32(VX_TILE)
 #undef VX_TILE
   return (int)cudaErrorInvalidValue;
 }

@@ -35,7 +35,7 @@
 //   K1's exps are ex2.approx.ftz.f32 with scale*log2(e) folded into one FMA.
 // * fp32: flash_fwd_tf32 (flash_fwd_tf32.cuh), the same design on tf32
 //   wgmma with each operand split into tf32 hi and lo parts: a split pass
-//   (tf32_split, tf32_split_vt below) writes q's, k's and v's parts, v's
+//   (tf32_split, tf32_split_vt in tf32_split.cuh) writes q's, k's and v's parts, v's
 //   transposed, into a scratch buffer (6 tensors of q's or k's size), then
 //   the kernel reads them by TMA. Tilings (VX_F32): 128 query rows and
 //   64-key stages at D=40, 32-key at D=80; 64 rows and 16-key stages at
@@ -110,51 +110,7 @@ int forward_bf16(const void* q, const void* k, const void* v, void* o, float* ls
 }
 
 // ------------------------------------------------------------- fp32 (TMA, tf32)
-// x rounded to tf32 (hi) and what that left, rounded to tf32 (lo)
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = __uint_as_float(tf32_rna(x));
-  lo = __uint_as_float(tf32_rna(x - hi));
-}
-
-// hi and lo parts of x * mul (`n4` float4s; the product rounded to fp32
-// first, as K2's plain version rounds q * scale)
-__global__ void __launch_bounds__(256)
-tf32_split(const float4* __restrict__ x, float4* __restrict__ hi, float4* __restrict__ lo,
-           long long n4, float mul) {
-  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4; i += gridDim.x * 256ll) {
-    const float4 v = x[i];
-    float4 h, l;
-    split_tf32(__fmul_rn(v.x, mul), h.x, l.x);
-    split_tf32(__fmul_rn(v.y, mul), h.y, l.y);
-    split_tf32(__fmul_rn(v.z, mul), h.z, l.z);
-    split_tf32(__fmul_rn(v.w, mul), h.w, l.w);
-    hi[i] = h;
-    lo[i] = l;
-  }
-}
-
-// v (B, Lk, H*D) -> its hi and lo parts transposed, (B, H, D, Lk), each group
-// of 8 keys in perm_key's order (flash_fwd_tf32.cuh); one block per 32 keys
-// of one (batch, head)
-template <int D>
-__global__ void __launch_bounds__(256)
-tf32_split_vt(const float* __restrict__ v, float* __restrict__ hi, float* __restrict__ lo, int H,
-              int Lk) {
-  constexpr int TK = 32;
-  __shared__ float tile[TK][D + 1];
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * TK;
-  const float* src = v + ((long long)b * Lk + k0) * H * D + h * D;
-  for (int i = threadIdx.x; i < TK * D; i += 256) tile[i / D][i % D] = src[(long long)(i / D) * H * D + i % D];
-  __syncthreads();
-  const long long base = (long long)bh * D * Lk + k0;
-  for (int i = threadIdx.x; i < TK * D; i += 256) {
-    const int d = i / TK, col = i % TK;
-    float hv, lv;
-    split_tf32(tile[(col & ~7) + perm_key(col & 7)][d], hv, lv);
-    hi[base + (long long)d * Lk + col] = hv;
-    lo[base + (long long)d * Lk + col] = lv;
-  }
-}
+// (the split pass's kernels: tf32_split.cuh)
 
 // the parts in the scratch buffer, in this order: q hi, q lo, k hi, k lo,
 // v^T hi, v^T lo (q's size twice, then k's four times)
@@ -235,18 +191,15 @@ int vx_flash_fwd_f32_split(const void* q, const void* k, const void* v, void* pa
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nq = (long long)B * Lq * H * D, nk = (long long)B * Lk * H * D;
   const Tf32Parts p(parts, nq, nk);
-  const auto blocks = [](long long n4) { return (unsigned)std::min(n4 / 256 + 1, 132ll * 16); };
-  tf32_split<<<blocks(nq / 4), 256, 0, s>>>(static_cast<const float4*>(q),
-                                            reinterpret_cast<float4*>(p.qh),
-                                            reinterpret_cast<float4*>(p.ql), nq / 4, qmul);
-  tf32_split<<<blocks(nk / 4), 256, 0, s>>>(static_cast<const float4*>(k),
-                                            reinterpret_cast<float4*>(p.kh),
-                                            reinterpret_cast<float4*>(p.kl), nk / 4, 1.f);
-  const dim3 grid(Lk / 32, B * H);
-  const float* vf = static_cast<const float*>(v);
-  if (D == 40) tf32_split_vt<40><<<grid, 256, 0, s>>>(vf, p.vh, p.vl, H, Lk);
-  if (D == 80) tf32_split_vt<80><<<grid, 256, 0, s>>>(vf, p.vh, p.vl, H, Lk);
-  if (D == 160) tf32_split_vt<160><<<grid, 256, 0, s>>>(vf, p.vh, p.vl, H, Lk);
+  tf32_split<<<tf32_split_blocks(nq / 4), 256, 0, s>>>(static_cast<const float4*>(q),
+                                                        reinterpret_cast<float4*>(p.qh),
+                                                        reinterpret_cast<float4*>(p.ql), nq / 4,
+                                                        qmul);
+  tf32_split<<<tf32_split_blocks(nk / 4), 256, 0, s>>>(static_cast<const float4*>(k),
+                                                        reinterpret_cast<float4*>(p.kh),
+                                                        reinterpret_cast<float4*>(p.kl), nk / 4,
+                                                        1.f);
+  launch_split_vt(static_cast<const float*>(v), p.vh, p.vl, B, H, Lk, D, s);
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,7 @@
 // K1's fp32 p three RS products (p split in registers); with K2's p, which is
 // bf16-valued and so exact in tf32, two: P V_hi + P V_lo.
 //
-// The split pass (flash_fwd.cu: tf32_split, tf32_split_vt), three launches
+// The split pass (tf32_split.cuh: tf32_split, tf32_split_vt), three launches
 // before the kernel on the same stream, writes the parts once into a scratch
 // buffer the wrapper allocates: q's and k's in their own (B, L, H*D) layout,
 // v's transposed to (B, H, D, Lk), because wgmma takes a tf32 B operand
@@ -39,7 +39,12 @@
 // sign: O summed over Lk = 4096 keys in 1,536 products missed the fp32 mean
 // bar by 2.3x on the H100. So each tile's P V starts afresh (scale_d 0), and
 // O takes it on the CUDA cores, O = (O + PV) alpha, rounded to nearest: the
-// truncated chain is one tile long (24 products at D=40).
+// truncated chain is one tile long (24 products at D=40). Within a chain the
+// small cross products (hi lo, lo hi) go first and hi hi last: a wgmma's
+// products are aligned to the larger of them and the accumulator and cut
+// below its last bit, so the small terms lose less while the sum is small
+// (hi hi first, K1's output at attn1 @64², batch 20, missed the fp32
+// gradient bar's max, 1e-4 std(ref), by 1.7x on the H100).
 //
 // Shared memory: Q's and K's parts are cut along the head dim into chunks of
 // CW = SW / 4 columns (SW the swizzle span in bytes); the TMA box reads zeros
@@ -55,6 +60,7 @@
 #include "flash_common.cuh"
 #include "flash_fwd_wgmma.cuh"  // FwdArgs
 #include "hopper.cuh"
+#include "tf32_split.cuh"  // perm_key
 
 namespace {
 
@@ -108,10 +114,6 @@ struct Tf32Tile {
 template <int D, int SW, int BQ, int BK>
 using K1Tf32Tile = Tf32Tile<D, SW, BQ, BK, 3>;
 
-// the (g, t) accumulator pair of keys 2t, 2t+1 of an 8-key group is the A
-// fragment's k-indices t, t+4: V^T's columns hold the keys in this order
-__host__ __device__ constexpr int perm_key(int i) { return i < 4 ? 2 * i : 2 * (i - 4) + 1; }
-
 // One consumer warpgroup's state over the key loop (the bf16 WgConsumer's,
 // with tf32 products): 64 query rows, each warp's rows g and g+8.
 template <class T, bool LITE>
@@ -141,16 +143,19 @@ struct Tf32Consumer {
     const uint64_t kl = wgmma_desc<T::SW>(kt + T::K_PART, 16, 8 * T::SW);
     wgmma_fence_operands(s);
     wgmma_fence();
+    // the small cross products first, hi hi last: each wgmma's sum is
+    // truncated relative to the accumulator it adds to
 #pragma unroll
-    for (int kd = 0; kd < KS; ++kd) {
-      // k-step kd: chunk kd*8 / CW, 32 bytes a step within it (descriptor
-      // addresses count 16 bytes)
-      constexpr int CW = T::CW;
-      const uint64_t qo = (kd * 8 / CW) * (T::Q_CHUNK / 16) + (kd * 8 % CW) / 4;
-      const uint64_t ko = (kd * 8 / CW) * (T::K_CHUNK / 16) + (kd * 8 % CW) / 4;
-      wgmma_ss_tf32<BK>(s, qh + qo, kh + ko, kd);
-      wgmma_ss_tf32<BK>(s, qh + qo, kl + ko, 1);
-      wgmma_ss_tf32<BK>(s, ql + qo, kh + ko, 1);
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int kd = 0; kd < KS; ++kd) {
+        // k-step kd: chunk kd*8 / CW, 32 bytes a step within it (descriptor
+        // addresses count 16 bytes)
+        constexpr int CW = T::CW;
+        const uint64_t qo = (kd * 8 / CW) * (T::Q_CHUNK / 16) + (kd * 8 % CW) / 4;
+        const uint64_t ko = (kd * 8 / CW) * (T::K_CHUNK / 16) + (kd * 8 % CW) / 4;
+        wgmma_ss_tf32<BK>(s, (i == 1 ? ql : qh) + qo, (i == 0 ? kl : kh) + ko, i + kd);
+      }
     }
     wgmma_commit();
   }
@@ -247,14 +252,21 @@ struct Tf32Consumer {
     wgmma_fence_operands(ph);
     if constexpr (!LITE) wgmma_fence_operands(pl);
     wgmma_fence();
+    // the cross products first, hi hi last, as in issue_s
+    constexpr int CWV = T::CWV;
 #pragma unroll
-    for (int kk = 0; kk < NKK; ++kk) {
-      constexpr int CWV = T::CWV;
-      const uint64_t o = (kk * 8 / CWV) * (T::V_CHUNK / 16) + (kk * 8 % CWV) / 4;
-      wgmma_rs_tf32<D>(pv, ph[kk], vh + o, kk);
-      wgmma_rs_tf32<D>(pv, ph[kk], vl + o, 1);
-      if constexpr (!LITE) wgmma_rs_tf32<D>(pv, pl[kk], vh + o, 1);
+    for (int kk = 0; kk < NKK; ++kk)
+      wgmma_rs_tf32<D>(pv, ph[kk], vl + (kk * 8 / CWV) * (T::V_CHUNK / 16) + (kk * 8 % CWV) / 4,
+                       kk);
+    if constexpr (!LITE) {
+#pragma unroll
+      for (int kk = 0; kk < NKK; ++kk)
+        wgmma_rs_tf32<D>(pv, pl[kk], vh + (kk * 8 / CWV) * (T::V_CHUNK / 16) + (kk * 8 % CWV) / 4,
+                         1);
     }
+#pragma unroll
+    for (int kk = 0; kk < NKK; ++kk)
+      wgmma_rs_tf32<D>(pv, ph[kk], vh + (kk * 8 / CWV) * (T::V_CHUNK / 16) + (kk * 8 % CWV) / 4, 1);
     wgmma_commit();
   }
 

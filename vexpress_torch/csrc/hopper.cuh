@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the flash kernels: mbarriers, TMA loads
 // (tiled 4-D boxes and 1-D bulk copies), wgmma descriptors, fences and
-// products (bf16, and tf32 for the fp32 forward), and, on the host, the
-// encoding of the 4-D tensor maps. The bf16 forward (flash_fwd_wgmma.cuh),
-// the fp32 forward (flash_fwd_tf32.cuh), both launched from flash_fwd.cu,
-// and the backward (flash_bwd_wgmma.cuh, launched from flash_bwd.cu) include
-// this header.
+// products (bf16, and tf32 for the fp32 kernels), the cluster's shared
+// memory and barriers, and, on the host, the encoding of the 4-D tensor
+// maps. The bf16 forward (flash_fwd_wgmma.cuh), the fp32 forward
+// (flash_fwd_tf32.cuh), both launched from flash_fwd.cu, and the bf16 and
+// fp32 backward (flash_bwd_wgmma.cuh, flash_bwd_tf32.cuh, launched from
+// flash_bwd.cu) include this header.
 
 #pragma once
 
@@ -42,6 +43,47 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ------------------------------------------------------------------ clusters
+// (the fp32 backward at D=160, flash_bwd_tf32.cuh: two CTAs share a block's
+// rows, each on half the head dim, and send each other partial sums)
+
+// the shared::cluster address of `addr` (this CTA's shared memory) in CTA `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// 16 bytes into another CTA's shared memory (a shared::cluster address)
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
+}
+// an arrive on another CTA's mbarrier (a shared::cluster address), ordered
+// after this thread's earlier stores at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// until the phase of parity `parity` has completed, seeing what the other
+// CTA's arrivers stored before they arrived
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// every thread of every CTA of the cluster (not .aligned: a warp's threads
+// may come to it apart)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
 }
 
 // ----------------------------------------------------------------------- TMA

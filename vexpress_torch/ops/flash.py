@@ -9,7 +9,9 @@ fp32 through TMA and tf32 wgmma at fp32's accuracy, each operand split into
 two tf32 parts, `csrc/flash_fwd_tf32.cuh`, `split_tf32` below its
 arithmetic) and `csrc/flash_bwd.cu` (dk/dv and dq: bf16 through TMA and
 wgmma, `csrc/flash_bwd_wgmma.cuh`, with its host geometry in `flash_tma.py`
-too; fp32 scalar), CUDA C++ for sm_90a,
+too; fp32 through TMA and tf32 wgmma, 3xTF32 as the fp32 forward,
+`csrc/flash_bwd_tf32.cuh`, `flash_sdpa_bwd_tf32_emulated` below its
+arithmetic), CUDA C++ for sm_90a,
 built by nvcc into one plain-C shared library under `vexpress_torch/_build/`
 at first use and called through ctypes. The same library holds the
 attention-variant bench's kernels T1 and T2 (`ops/flash_variants.py`,
@@ -132,10 +134,14 @@ def _library():
             lib.vx_flash_fwd_f32.restype = i
             lib.vx_flash_fwd_f32_tile.argtypes = [i, p]
             lib.vx_flash_fwd_f32_tile.restype = i
-            lib.vx_flash_bwd_dkv_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
+            lib.vx_flash_bwd_f32_split.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.vx_flash_bwd_f32_split.restype = i
+            lib.vx_flash_bwd_dkv_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, f, p]
             lib.vx_flash_bwd_dkv_f32.restype = i
-            lib.vx_flash_bwd_dq_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
+            lib.vx_flash_bwd_dq_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, p, f, p]
             lib.vx_flash_bwd_dq_f32.restype = i
+            lib.vx_flash_bwd_f32_tile.argtypes = [i, p]
+            lib.vx_flash_bwd_f32_tile.restype = i
             lib.vx_flash_bwd_dkv_tma.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
             lib.vx_flash_bwd_dkv_tma.restype = i
             lib.vx_flash_bwd_dq_tma.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, f, p]
@@ -250,6 +256,15 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, _tf32_rna(x - hi)
 
 
+def _transposed(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, L, H*D) -> (B, H, D, L) with each group of 8 rows of L in
+    TF32_KEY_ORDER: the transposed parts' layout before the split."""
+    b, n, inner = x.shape
+    d = inner // heads
+    return (x.float().reshape(b, n // 8, 8, heads, d)[:, :, list(TF32_KEY_ORDER)]
+            .permute(0, 3, 4, 1, 2).reshape(b, heads, d, n))
+
+
 def tf32_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
                qmul: float = 1.0) -> Tuple[torch.Tensor, ...]:
     """Plain version of the fp32 forward's split pass (csrc/flash_fwd.cu:
@@ -257,12 +272,135 @@ def tf32_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     rounded to fp32; K2's scale, else 1), of k, both (B, L, H*D), and of v
     transposed to (B, H, D, Lk) with each group of 8 keys in
     TF32_KEY_ORDER: (qh, ql, kh, kl, vh, vl)."""
-    b, lk, inner = v.shape
-    d = inner // heads
     qs = q.float() * torch.tensor(qmul, dtype=torch.float32, device=q.device)
-    vt = (v.float().reshape(b, lk // 8, 8, heads, d)[:, :, list(TF32_KEY_ORDER)]
-          .permute(0, 3, 4, 1, 2).reshape(b, heads, d, lk))
-    return (*split_tf32(qs), *split_tf32(k), *split_tf32(vt))
+    return (*split_tf32(qs), *split_tf32(k), *split_tf32(_transposed(v, heads)))
+
+
+# the fp32 backward's parts, in the order the split pass writes them
+# (csrc/flash_bwd.cu's Tf32BwdParts): 8 of q's size, then 6 of k's
+TF32_BWD_PARTS = ("qh", "ql", "doh", "dol", "qth", "qtl", "doth", "dotl",
+                  "kh", "kl", "vh", "vl", "kth", "ktl")
+
+
+def tf32_bwd_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                   heads: int) -> dict:
+    """Plain version of the fp32 backward's split pass (csrc/flash_bwd.cu:
+    vx_flash_bwd_f32_split): the hi and lo parts of q, do, k and v in their
+    own (B, L, H*D) layout, and of q, do and k transposed to (B, H, D, L)
+    with each group of 8 rows in TF32_KEY_ORDER; keyed by TF32_BWD_PARTS."""
+    out = {}
+    for name, x in (("q", q), ("do", do), ("k", k), ("v", v)):
+        out[name + "h"], out[name + "l"] = split_tf32(x)
+    for name, x in (("qt", q), ("dot", do), ("kt", k)):
+        out[name + "h"], out[name + "l"] = split_tf32(_transposed(x, heads))
+    return {name: out[name] for name in TF32_BWD_PARTS}
+
+
+def _tf32_a(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of an accumulator (..., rows, R) taken as A fragments: its
+    columns in TF32_KEY_ORDER within each 8-column group, as the kernel's
+    registers pair them with the transposed parts' k-indices."""
+    *lead, rows, n = x.shape
+    perm = x.reshape(*lead, rows, n // 8, 8)[..., list(TF32_KEY_ORDER)].reshape(*lead, rows, n)
+    return split_tf32(perm)
+
+
+def _ss3(ah, al, bh, bl) -> torch.Tensor:
+    """A B^T taken as hi hi + hi lo + lo hi (a tf32 product of two tf32
+    values is exact in fp32; the sums fp32)."""
+    return ah @ bh.transpose(-1, -2) + ah @ bl.transpose(-1, -2) + al @ bh.transpose(-1, -2)
+
+
+def _rs3(a: torch.Tensor, bh: torch.Tensor, bl: torch.Tensor, products: int = 3) -> torch.Tensor:
+    """A B over a ring tile, A an accumulator split as `_tf32_a` splits it,
+    B the transposed part's (hi, lo) columns of the tile: hi hi + hi lo +
+    lo hi (`products` 1: hi hi alone)."""
+    ah, al = _tf32_a(a)
+    if products == 1:
+        return ah @ bh.transpose(-1, -2)
+    return ah @ bh.transpose(-1, -2) + ah @ bl.transpose(-1, -2) + al @ bh.transpose(-1, -2)
+
+
+def flash_sdpa_bwd_tf32_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 do: torch.Tensor, lse: torch.Tensor, di: torch.Tensor,
+                                 heads: int, scale: Optional[float] = None,
+                                 products: int = 3,
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fp32 backward kernels' arithmetic (csrc/flash_bwd_tf32.cuh) in
+    plain torch: (dq, dk, dv) from the parts `tf32_bwd_parts` gives, at
+    flash_tma.F32_BWD_TILES's tiling. S and dP over the head dim as hi hi +
+    hi lo + lo hi of the row-major parts, summed over the cluster's column
+    slices (D=160: two halves, added); P = 2^(S scale log2 e - lse log2 e),
+    dS = P (dP - di) in fp32; each ring tile's dQ (dq kernel, key tiles) and
+    dV, dK (dk/dv kernel, query tiles) from P, dS split as the kernel's
+    registers hold them and the transposed parts, added into the sums tile
+    by tile in the kernel's order; dQ divided by its rows' sums r of P, and
+    dk/dv's P taken against lse + ln r. `products` 1 takes every product as one
+    TF32 product (hi hi): the control the fp32 bars must reject. The tensor
+    cores' truncating sums within a tile are not modelled (the card tests
+    and chip_smoke.py hold the kernels themselves to the bars)."""
+    from . import flash_tma
+
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    if scale is None:
+        scale = d**-0.5
+    parts = tf32_bwd_parts(q, k, v, do, heads)
+    if products == 1:
+        parts = {n: (x if n.endswith("h") else torch.zeros_like(x)) for n, x in parts.items()}
+    t = flash_tma.f32_bwd_tile(d)
+    dh = d // t["cluster"]
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    scale_log2 = torch.tensor(scale, dtype=torch.float32) * log2e
+    lse2 = lse.float() * log2e  # (B, H, Lq)
+    rows = {n: parts[n].reshape(b, -1, heads, d).transpose(1, 2)  # (B, H, L, D)
+            for n in ("qh", "ql", "doh", "dol", "kh", "kl", "vh", "vl")}
+
+    def sdp(q_rows, k_rows):
+        """S (B, H, |q_rows|, |k_rows|) and dP over the cluster's column
+        slices, each slice's 3xTF32 sum, the slices added."""
+        s = dp = None
+        for c in range(0, d, dh):
+            cs = slice(c, c + dh)
+            part_s = _ss3(*(rows[n][:, :, r, cs] for n, r in
+                            (("qh", q_rows), ("ql", q_rows), ("kh", k_rows), ("kl", k_rows))))
+            part_dp = _ss3(*(rows[n][:, :, r, cs] for n, r in
+                             (("doh", q_rows), ("dol", q_rows), ("vh", k_rows), ("vl", k_rows))))
+            s = part_s if s is None else s + part_s
+            dp = part_dp if dp is None else dp + part_dp
+        return s, dp
+
+    def p_ds(s, dp, q_rows, lse2):
+        p = torch.exp2(s * scale_log2 - lse2[:, :, q_rows, None])
+        return p, p * (dp - di[:, :, q_rows, None].float())
+
+    # dq: the key axis in ring tiles; the rows' sums r of P (tile sums added
+    # in fp64) divide dQ, and lse + ln r goes to dk/dv
+    rk = t["dq_rows"]
+    dq = torch.zeros(b, heads, lq, d)
+    r_sum = torch.zeros(b, heads, lq, dtype=torch.float64)
+    for r in range(0, lk, rk):
+        tile = slice(r, r + rk)
+        s, dp = sdp(slice(None), tile)
+        p, ds = p_ds(s, dp, slice(None), lse2)
+        r_sum += p.sum(-1).double()
+        dq = dq + _rs3(ds, parts["kth"][..., tile], parts["ktl"][..., tile], products)
+    lse2 = (lse.double() + torch.log(r_sum)).float() * log2e
+    # dk/dv: the query axis in ring tiles, each tile's products added in order
+    rq = t["dkv_rows"]
+    dk = torch.zeros(b, heads, lk, d)
+    dv = torch.zeros(b, heads, lk, d)
+    for r in range(0, lq, rq):
+        tile = slice(r, r + rq)
+        s, dp = sdp(tile, slice(None))
+        p, ds = p_ds(s, dp, tile, lse2)
+        dv = dv + _rs3(p.transpose(-1, -2), parts["doth"][..., tile], parts["dotl"][..., tile],
+                       products)
+        dk = dk + _rs3(ds.transpose(-1, -2), parts["qth"][..., tile], parts["qtl"][..., tile],
+                       products)
+    scale_t = torch.tensor(scale, dtype=torch.float32)
+    dq = dq * (scale_t.double() / r_sum[..., None]).float()
+    return tuple(x.transpose(1, 2).reshape(b, -1, inner) for x in (dq, dk * scale_t, dv))
 
 
 # ------------------------------------------------------------------ kernels
@@ -324,6 +462,7 @@ def _stream(t: torch.Tensor) -> int:
 _tiles_checked = set()
 _f32_tiles_checked = set()
 _bwd_tiles_checked = set()
+_f32_bwd_tiles_checked = set()
 
 
 def _check_tiling(lib, key, entry: str, fields, host_tile, checked: set, what: str) -> None:
@@ -363,6 +502,12 @@ def _check_bwd_tile(lib, d: int) -> None:
                   _bwd_tiles_checked, "backward")
 
 
+def _check_f32_bwd_tile(lib, d: int) -> None:
+    """The fp32 backward's tiling (`vx_flash_bwd_f32_tile`) against flash_tma.f32_bwd_tile."""
+    _check_tiling(lib, d, "vx_flash_bwd_f32_tile", flash_tma.F32_BWD_TILE_FIELDS,
+                  flash_tma.f32_bwd_tile, _f32_bwd_tiles_checked, "fp32 backward")
+
+
 @functools.lru_cache(maxsize=256)
 def _tma_geometry(b: int, lq: int, lk: int, heads: int, d: int):
     """flash_tma's geometry of one bf16 launch, as `vx_flash_fwd_tma` reads
@@ -396,6 +541,19 @@ def _bwd_tma_geometry(b: int, lq: int, lk: int, heads: int, d: int, kernel: str)
         raise ValueError(f"flash backward {kernel} kernel cannot take this launch: "
                          + "; ".join(bad))
     return flash_tma.bwd_geometry_arg(geom), geom["grid"][2]
+
+
+@functools.lru_cache(maxsize=256)
+def _f32_bwd_geometry(b: int, lq: int, lk: int, heads: int, d: int, kernel: str):
+    """flash_tma's geometry of one launch of the fp32 backward's `kernel`
+    ("dkv" or "dq"), as `vx_flash_bwd_*_f32` reads it, and its parts of the
+    query axis, once per shape; raises where TMA or the kernel cannot take it."""
+    geom = flash_tma.f32_bwd_geometry(b, lq, lk, heads, d, kernel)
+    bad = flash_tma.tma_violations(geom)
+    if bad:
+        raise ValueError(f"flash fp32 backward {kernel} kernel cannot take this launch: "
+                         + "; ".join(bad))
+    return flash_tma.f32_bwd_geometry_arg(geom), geom["grid"][2]
 
 
 def _launch_fwd(q, k, v, heads: int, scale: float, with_lse: bool = False, lite: bool = False):
@@ -449,6 +607,25 @@ def launch_f32_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: i
     return parts
 
 
+def launch_f32_bwd_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                         heads: int, need_dkv: bool = True) -> torch.Tensor:
+    """The fp32 backward's split pass (csrc/flash_bwd.cu:
+    vx_flash_bwd_f32_split) on the current stream, into a scratch buffer
+    allocated here: `tf32_bwd_parts`' fourteen tensors flattened one after
+    the other (the transposed parts of q and do written for `need_dkv`; the
+    dq kernel, which reads k's, always runs). Contiguous fp32 CUDA tensors
+    as `launch_bwd` checks them."""
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    parts = torch.empty(8 * q.numel() + 6 * k.numel(), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _library().vx_flash_bwd_f32_split(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                               do.data_ptr(), parts.data_ptr(), b, heads, lq, lk,
+                                               d, int(need_dkv), _stream(q))
+    _raise_on(rc, "fp32 backward split")
+    return parts
+
+
 def launch_lite(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
                 scale: float) -> torch.Tensor:
     """K2, the LITE variant of csrc/flash_fwd.cu, on the current stream. The
@@ -471,11 +648,15 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tens
                need_dq: bool = True, need_dkv: bool = True):
     """csrc/flash_bwd.cu on the current stream: the dk/dv kernel when
     `need_dkv`, the dq kernel when `need_dq`; returns (dq, dk, dv) with None
-    for a gradient not asked for. CUDA tensors only. bf16, at every head dim
-    (40, 80, 160), runs the TMA/wgmma kernels (csrc/flash_bwd_wgmma.cuh;
-    where the dk/dv kernel splits the query axis, its fp32 workspace is
-    allocated here and `flash_bwd_dkv_sum` adds the parts, counted as its
-    own launch); fp32 runs the scalar kernels."""
+    for a gradient not asked for. CUDA tensors only, at every head dim (40,
+    80, 160). bf16 runs the TMA/wgmma kernels (csrc/flash_bwd_wgmma.cuh).
+    fp32 runs the split pass (`launch_f32_bwd_split`) and the 3xTF32
+    TMA/wgmma kernels on its parts (csrc/flash_bwd_tf32.cuh): the dq kernel
+    first, also where only dk and dv are asked for, since it gives the dk/dv
+    kernel the log-sum-exp of the backward's own logits (`launch_f32_dq`,
+    `launch_f32_dkv`). Where the dk/dv kernel splits the query axis, its
+    fp32 workspace is allocated here and `flash_bwd_dkv_sum` adds the parts,
+    counted as its own launch."""
     _check_kernel_inputs(heads, q=q, k=k, v=v, do=do)
     b, lq, inner = q.shape
     lk, d = k.shape[1], inner // heads
@@ -485,53 +666,96 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tens
             raise ValueError(f"flash backward needs a contiguous 16-byte aligned fp32 {name} of "
                              f"shape {(b, heads, lq)} on {q.device}, got {tuple(t.shape)} "
                              f"{t.dtype}")
-    tma = q.dtype == torch.bfloat16
+    if q.dtype == torch.float32:
+        parts = launch_f32_bwd_split(q, k, v, do, heads, need_dkv)
+        lse_dkv = torch.empty_like(lse) if need_dkv else None
+        dq = launch_f32_dq(parts, q, k, lse, di, heads, scale, lse_dkv)
+        dk, dv = launch_f32_dkv(parts, q, k, lse_dkv, di, heads, scale) if need_dkv else (None,
+                                                                                         None)
+        return dq if need_dq else None, dk, dv
     geoms = {kernel: _bwd_tma_geometry(b, lq, lk, heads, d, kernel)
-             for kernel, need in (("dkv", need_dkv), ("dq", need_dq)) if tma and need}
+             for kernel, need in (("dkv", need_dkv), ("dq", need_dq)) if need}
     lib = _library()
-    if tma:
-        _check_bwd_tile(lib, d)
+    _check_bwd_tile(lib, d)
     dq = torch.empty_like(q) if need_dq else None
     dk = torch.empty_like(k) if need_dkv else None
     dv = torch.empty_like(v) if need_dkv else None
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr())
-    if not tma:
-        st = [q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-              do.stride(0), do.stride(1)]
-        for t in (dq, dk, dv):
-            st += [t.stride(0), t.stride(1)] if t is not None else [0, 0]
-        strides = (ctypes.c_longlong * len(st))(*st)
     with torch.cuda.device(q.device):
         stream = _stream(q)
         if need_dkv:
-            parts = 1
-            if tma:
-                geom, parts = geoms["dkv"]
-                ws = (torch.empty((2, parts, b, lk, inner), dtype=torch.float32, device=q.device)
-                      if parts > 1 else None)
-                rc = lib.vx_flash_bwd_dkv_tma(*args, dk.data_ptr(), dv.data_ptr(),
-                                              None if ws is None else ws.data_ptr(), b, heads,
-                                              lq, lk, d, geom, float(scale), stream)
-            else:
-                rc = lib.vx_flash_bwd_dkv_f32(*args, dk.data_ptr(), dv.data_ptr(), b, heads, lq,
-                                              lk, d, strides, float(scale), stream)
+            geom, parts = geoms["dkv"]
+            ws = (torch.empty((2, parts, b, lk, inner), dtype=torch.float32, device=q.device)
+                  if parts > 1 else None)
+            rc = lib.vx_flash_bwd_dkv_tma(*args, dk.data_ptr(), dv.data_ptr(),
+                                          None if ws is None else ws.data_ptr(), b, heads, lq,
+                                          lk, d, geom, float(scale), stream)
             _raise_on(rc, "backward dk/dv")
-            counts["flash_bwd_dkv"] += 1
-            shapes[("flash_bwd_dkv", b, lq, lk, d)] += 1
-            if parts > 1:
-                counts["flash_bwd_dkv_sum"] += 1
+            _count_dkv(b, lq, lk, d, parts)
         if need_dq:
-            if tma:
-                rc = lib.vx_flash_bwd_dq_tma(*args, dq.data_ptr(), b, heads, lq, lk, d,
-                                             geoms["dq"][0], float(scale), stream)
-            else:
-                rc = lib.vx_flash_bwd_dq_f32(*args, dq.data_ptr(), b, heads, lq, lk, d, strides,
-                                             float(scale), stream)
+            rc = lib.vx_flash_bwd_dq_tma(*args, dq.data_ptr(), b, heads, lq, lk, d,
+                                         geoms["dq"][0], float(scale), stream)
             _raise_on(rc, "backward dq")
-            counts["flash_bwd_dq"] += 1
-            shapes[("flash_bwd_dq", b, lq, lk, d)] += 1
+            _count_dq(b, lq, lk, d)
     return dq, dk, dv
+
+
+def _count_dkv(b: int, lq: int, lk: int, d: int, parts: int) -> None:
+    counts["flash_bwd_dkv"] += 1
+    shapes[("flash_bwd_dkv", b, lq, lk, d)] += 1
+    if parts > 1:
+        counts["flash_bwd_dkv_sum"] += 1
+
+
+def _count_dq(b: int, lq: int, lk: int, d: int) -> None:
+    counts["flash_bwd_dq"] += 1
+    shapes[("flash_bwd_dq", b, lq, lk, d)] += 1
+
+
+def launch_f32_dq(parts: torch.Tensor, q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+                  di: torch.Tensor, heads: int, scale: float,
+                  lse_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fp32 dq kernel (csrc/flash_bwd_tf32.cuh) on the split pass's
+    `parts` of q's and k's shapes, with `launch_bwd`'s checks made: returns
+    dq, and fills `lse_out` (or nothing, if None) with the log-sum-exp of the
+    kernel's own logits, which `launch_f32_dkv` then takes."""
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    geom = _f32_bwd_geometry(b, lq, lk, heads, d, "dq")[0]
+    lib = _library()
+    _check_f32_bwd_tile(lib, d)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.vx_flash_bwd_dq_f32(parts.data_ptr(), lse.data_ptr(), di.data_ptr(),
+                                     dq.data_ptr(), None if lse_out is None else lse_out.data_ptr(),
+                                     b, heads, lq, lk, d, geom, float(scale), _stream(q))
+    _raise_on(rc, "backward dq")
+    _count_dq(b, lq, lk, d)
+    return dq
+
+
+def launch_f32_dkv(parts: torch.Tensor, q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+                   di: torch.Tensor, heads: int, scale: float):
+    """The fp32 dk/dv kernel (csrc/flash_bwd_tf32.cuh) on the split pass's
+    `parts`, `lse` the dq kernel's corrected one; returns (dk, dv)."""
+    b, lq, inner = q.shape
+    lk, d = k.shape[1], inner // heads
+    geom, n_parts = _f32_bwd_geometry(b, lq, lk, heads, d, "dkv")
+    lib = _library()
+    _check_f32_bwd_tile(lib, d)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(k)
+    ws = (torch.empty((2, n_parts, b, lk, inner), dtype=torch.float32, device=q.device)
+          if n_parts > 1 else None)
+    with torch.cuda.device(q.device):
+        rc = lib.vx_flash_bwd_dkv_f32(parts.data_ptr(), lse.data_ptr(), di.data_ptr(),
+                                      dk.data_ptr(), dv.data_ptr(),
+                                      None if ws is None else ws.data_ptr(), b, heads, lq, lk, d,
+                                      geom, float(scale), _stream(q))
+    _raise_on(rc, "backward dk/dv")
+    _count_dkv(b, lq, lk, d, n_parts)
+    return dk, dv
 
 
 def flash_sdpa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,

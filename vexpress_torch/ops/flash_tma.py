@@ -24,7 +24,10 @@ by it. `variant_tile` is what the library reports through
 
 The fp32 forward (csrc/flash_fwd_tf32.cuh, 3xTF32) reads tf32 parts of q, k
 and v that a split pass writes, through the maps of `f32_geometry`, at the
-tiling `f32_tile` that `vx_flash_fwd_f32_tile` reports.
+tiling `f32_tile` that `vx_flash_fwd_f32_tile` reports. The fp32 backward
+(csrc/flash_bwd_tf32.cuh) reads the parts of q, k, v and do, and of q, do
+and k transposed, through the maps of `f32_bwd_geometry`, at the tiling
+`f32_bwd_tile` that `vx_flash_bwd_f32_tile` reports.
 
 The backward's kernels (csrc/flash_bwd_wgmma.cuh, bf16 at D=40, 80 and 160)
 read the same 4-D views in boxes of their ring tiles' rows (`bwd_geometry`:
@@ -125,6 +128,8 @@ def _instantiated(geom: dict) -> bool:
         return d == VARIANT_HEAD_DIM and sw == VARIANT_SWIZZLE
     if kernel == "f32":
         return d in F32_TILES and F32_TILES[d][0] == sw
+    if kernel in ("f32_dkv", "f32_dq"):
+        return d in F32_BWD_TILES and sw == F32_BWD_SWIZZLE
     return (SWIZZLE if kernel == "fwd" else BWD_SWIZZLE).get(d) == sw
 
 
@@ -137,7 +142,7 @@ def tma_violations(geom: dict) -> List[str]:
     sw, elem = geom["swizzle"], geom.get("elem", ELEM)
     if not _instantiated(geom):
         bad.append(f"no instantiation for D={geom['head_dim']} at swizzle {sw}")
-    for name in ("q", "kv", "vt"):
+    for name in ("q", "kv", "vt", "qt", "kt"):
         if name not in geom:
             continue
         m = geom[name]
@@ -171,6 +176,14 @@ def tma_violations(geom: dict) -> List[str]:
         lk, bk = geom["kv"]["dims"][2], geom["kv"]["box"][2]
         if lk % bk:
             bad.append(f"Lk={lk} not whole tiles of {bk} keys")
+    elif geom["kernel"] in ("f32_dkv", "f32_dq"):
+        q_tiles = geom["q"]["dims"][2] // geom["ring_rows"] if geom["kernel"] == "f32_dkv" else 1
+        if not 1 <= geom["grid"][2] <= q_tiles:
+            bad.append(f"{geom['grid'][2]} parts of {q_tiles} query tiles")
+        if any(m["dims"][2] % F32_BWD_ROWS for m in (geom["q"], geom["kv"])):
+            bad.append(f"rows not whole {F32_BWD_ROWS}-row blocks")
+        if geom["grid"][0] % geom["cluster"]:
+            bad.append(f"grid x {geom['grid'][0]} not whole clusters of {geom['cluster']}")
     elif geom["kernel"] != "fwd":
         walked = geom["q"]["dims"][2] // BWD_WG_ROWS  # 64-row query tiles the dk/dv parts share
         if not 1 <= geom["grid"][2] <= (walked if geom["kernel"] == "dkv" else 1):
@@ -432,4 +445,114 @@ def f32_geometry_arg(geom: dict):
             kv["box"][2], *geom["grid"], geom["smem"]]
     for m in (q, kv, vt):
         vals += [*m["dims"], *m["strides"]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+# ------------------------------------------------------------- fp32 backward
+# K1's fp32 backward (csrc/flash_bwd_tf32.cuh) on the TF32 tensor cores: the
+# split pass writes q, k, v and do as tf32 hi and lo parts in their own
+# layout (viewed as (D, H, L, B), 16-column chunks in the 64-byte swizzle)
+# and, for the RS products' B operands, q, do (dk/dv) and k (dq) transposed
+# to (B, H, D, L) (viewed as (L, D, H, B): boxes of R columns by the CTA's
+# head-dim rows, R * 4 bytes their swizzle span). A CTA holds 64 keys
+# (dk/dv) or 64 queries (dq) on one consumer warpgroup and walks the other
+# axis in ring tiles of R rows; at D=160 two CTAs of a cluster share a block,
+# 80 head-dim columns each.
+F32_BWD_SWIZZLE = 64
+F32_BWD_ROWS = 64  # keys (dk/dv) or queries (dq) of a block
+F32_BWD_THREADS = 256  # the consumer warpgroup and the producer's
+# head dim -> (CTAs a cluster, (dk/dv ring rows, stages), (dq ring rows,
+# stages)) (csrc/flash_bwd.cu's VX_BWD_F32): 32-row tiles at D=40; at D=80
+# a consumer's dK and dV sums and their tile products take 160 of its 255
+# registers, so 16-row tiles; D=160 is D=80's on each of a cluster's two CTAs
+F32_BWD_TILES = {40: (1, (32, 3), (32, 4)), 80: (1, (16, 3), (16, 4)),
+                 160: (2, (16, 3), (16, 4))}
+# what `f32_bwd_tile` returns, in the order of csrc/flash_bwd.cu::vx_flash_bwd_f32_tile
+F32_BWD_TILE_FIELDS = ("swizzle", "box_cols", "cluster", "dkv_rows", "dkv_stages", "dkv_smem",
+                       "dq_rows", "dq_stages", "dq_smem", "threads")
+
+
+def f32_bwd_smem(d: int, cluster: int, rows: int, stages: int, transposed: int) -> int:
+    """Tf32BwdTile::SMEM: the four parts (hi, lo of two operands) of the
+    block's 64 fixed rows, `stages` stages of the four parts of `rows` rows
+    of the two streamed operands and the hi and lo of `transposed` transposed
+    ones, lse and di (dk/dv: `rows` each a stage; dq: 64 each once), with two
+    CTAs the two buffers of the other's partial S and dP, the mbarriers and
+    1024 bytes of alignment slack; the CTA's head dim d / cluster."""
+    dh = d // cluster
+    chunk_cols = F32_BWD_SWIZZLE // F32_ELEM
+    row_part = -(-dh // chunk_cols) * F32_BWD_SWIZZLE  # bytes a row of a row-major part
+    fixed = 4 * F32_BWD_ROWS * row_part
+    stage = 4 * rows * row_part + 2 * transposed * dh * rows * F32_ELEM
+    stats = (stages * 2 * rows if transposed == 2 else 2 * F32_BWD_ROWS) * F32_ELEM
+    exchange = 2 * 2 * F32_BWD_ROWS * rows * F32_ELEM if cluster > 1 else 0
+    return fixed + stages * stage + stats + exchange + 8 * (2 * stages + 3) + 1024
+
+
+def f32_bwd_tile(d: int) -> dict:
+    """The fp32 backward kernels' tiling at head dim d, keyed by
+    F32_BWD_TILE_FIELDS (one CTA an SM). A head dim with no instantiation
+    gets D=40's, and is left to `tma_violations` and the launch to refuse."""
+    cluster, (kv_rows, kv_stages), (q_rows, q_stages) = F32_BWD_TILES.get(d, F32_BWD_TILES[40])
+    return dict(swizzle=F32_BWD_SWIZZLE, box_cols=F32_BWD_SWIZZLE // F32_ELEM, cluster=cluster,
+                dkv_rows=kv_rows, dkv_stages=kv_stages,
+                dkv_smem=f32_bwd_smem(d, cluster, kv_rows, kv_stages, 2),
+                dq_rows=q_rows, dq_stages=q_stages,
+                dq_smem=f32_bwd_smem(d, cluster, q_rows, q_stages, 1), threads=F32_BWD_THREADS)
+
+
+def f32_dkv_splits(b: int, heads: int, lq: int, lk: int, d: int) -> int:
+    """Parts of the query axis for the fp32 dk/dv kernel, as `dkv_splits`
+    for the bf16 one: 1 where its B*H*(Lk/64)*cluster CTAs fill the card's
+    N_SMS SMs, otherwise the most parts that still run in one wave, and no
+    more than there are ring tiles of queries."""
+    t = f32_bwd_tile(d)
+    ctas = b * heads * -(-lk // F32_BWD_ROWS) * t["cluster"]
+    return max(1, min(N_SMS // ctas, lq // t["dkv_rows"]))
+
+
+def f32_bwd_geometry(b: int, lq: int, lk: int, heads: int, d: int, kernel: str) -> dict:
+    """Everything the host sets for one launch of the fp32 backward's
+    `kernel` ("dkv" or "dq"): the maps of the row-major parts of q's size
+    (q, do) and k's (k, v), their boxes the fixed operands' 64 rows or the
+    ring tiles' rows, and of the transposed parts of q's size (dk/dv) or k's
+    (dq); the grid (blocks of 64 along Lk for dk/dv and along Lq for dq,
+    times the cluster's CTAs; B*H; the query parts), the shared memory."""
+    if kernel not in ("dkv", "dq"):
+        raise ValueError(f"backward kernel {kernel!r}: 'dkv' or 'dq'")
+    t = f32_bwd_tile(d)
+    e, sw, cl = F32_ELEM, t["swizzle"], t["cluster"]
+    rows, stages = t[f"{kernel}_rows"], t[f"{kernel}_stages"]
+    dh = d // cl
+    q_rows, kv_rows = (rows, F32_BWD_ROWS) if kernel == "dkv" else (F32_BWD_ROWS, rows)
+
+    def transposed(length):
+        return dict(dims=(length, d, heads, b), strides=(length * e, d * length * e,
+                                                         heads * d * length * e),
+                    box=(rows, dh, 1, 1), row_dim=1, swizzle=rows * e)
+
+    along = lk if kernel == "dkv" else lq
+    parts = f32_dkv_splits(b, heads, lq, lk, d) if kernel == "dkv" else 1
+    geom = dict(kernel=f"f32_{kernel}", elem=e, swizzle=sw, head_dim=d, cluster=cl,
+                ring_rows=rows, stages=stages,
+                q=_tensor_map(b, lq, heads, d, q_rows, sw, e),
+                kv=_tensor_map(b, lk, heads, d, kv_rows, sw, e),
+                grid=(-(-along // F32_BWD_ROWS) * cl, b * heads, parts),
+                threads=t["threads"], smem=t[f"{kernel}_smem"], blocks_per_sm=1)
+    geom["qt" if kernel == "dkv" else "kt"] = transposed(lq if kernel == "dkv" else lk)
+    return geom
+
+
+def f32_bwd_geometry_arg(geom: dict):
+    """The int64 array `vx_flash_bwd_dkv_f32` and `vx_flash_bwd_dq_f32`
+    read: head dim, CTAs a cluster, ring rows, stages, grid x, y and z,
+    shared memory, then the dims and byte strides of the maps of the
+    row-major parts of q's size and of k's size, and of the transposed parts
+    of q's size and of k's size (zeros for the one the kernel does not
+    read)."""
+    vals = [geom["head_dim"], geom["cluster"], geom["ring_rows"], geom["stages"], *geom["grid"],
+            geom["smem"]]
+    for name in ("q", "kv", "qt", "kt"):
+        m = geom.get(name)
+        vals += [*m["dims"], *m["strides"]] if m else [0] * 7
     return (ctypes.c_longlong * len(vals))(*vals)
