@@ -46,6 +46,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   full          the streamed pipeline at full SD1.5 width in bf16 at 512x512
                 with seeded random weights; checks the output and the kernel
                 launches
+  decode_tail   the chunked decode tail with an identity decode: every tail
+                length from 1 to chunk + 1 at chunk 4, filter on and off,
+                uint8 and YUV420, bitwise equal to the whole-clip route; and
+                the device memory it allocates over a 248-frame 512x512 bf16
+                clip on the card (at most 0.5 GiB), beside the whole-clip
+                route's
   train_full    5 train steps of stage 2 (configs/stage_2.yaml's values) at
                 full SD1.5 width in bf16, 20 frames at 512x512, seeded random
                 weights; checks losses, frozen and moved parameters, and the
@@ -1138,36 +1144,13 @@ def full_pipeline(torch, steps: int):
     return pipe, kw
 
 
-class PeakSplit:
-    """Peak allocated device memory by stretch of one pipeline call: up to
-    the first denoising-UNet call (set-up and conditioning), up to the first
-    VAE-decoder call (denoise), and the rest (decode), in GiB."""
-
-    def __init__(self, torch, pipe):
-        self.torch, self.peaks = torch, {}
-        self.hooks = [pipe.denoising_unet.register_forward_pre_hook(self._mark("conditioning")),
-                      pipe.vae.decoder.register_forward_pre_hook(self._mark("denoise"))]
-
-    def _mark(self, name):
-        def hook(*_):
-            if name not in self.peaks:
-                self.peaks[name] = self.torch.cuda.max_memory_allocated() / 2**30
-                self.torch.cuda.reset_peak_memory_stats()
-        return hook
-
-    def finish(self) -> dict:
-        self.peaks["decode"] = self.torch.cuda.max_memory_allocated() / 2**30
-        for h in self.hooks:
-            h.remove()
-        return self.peaks
-
-
 def full_phase(torch, steps: int) -> dict:
     """The streamed pipeline at SD1.5 width, bf16, 512x512, seeded random
     weights. Returns, besides times and memory, K1's launches by shape."""
     import numpy as np
     from vexpress_torch.ops import launches
     from vexpress_torch.pipelines.context import compute_context_windows
+    from vexpress_torch.tools.common import PeakSplit
 
     H = W = FULL_SIZE
     L, ctx, ovl = FULL_FRAMES, FULL_CONTEXT, FULL_OVERLAP
@@ -1190,7 +1173,7 @@ def full_phase(torch, steps: int) -> dict:
 
     hooks = [pipe.denoising_unet.register_forward_hook(watch("denoising_unet")),
              pipe.vae.decoder.register_forward_hook(watch("vae.decoder"))]
-    split = PeakSplit(torch, pipe)
+    split = PeakSplit(pipe)
     launches.reset()
     t0 = time.perf_counter()
     video = pipe(**kw)
@@ -1228,6 +1211,89 @@ def full_phase(torch, steps: int) -> dict:
                 resident_before_gib=resident_gib, params=n_params,
                 steps=steps, frames=L,
                 windows=n_windows, video_std=float(video.std()))
+
+
+TAIL_LENGTHS = (1, 2, 3, 4, 5, 8, 9, 12, 13)  # chunk 4: every tail from 1 to chunk + 1
+TAIL_CHUNK, TAIL_FRAMES, TAIL_BAR_GIB = 4, 248, 0.5
+
+
+def decode_tail_phase(torch) -> dict:
+    """The decode tail (`pipeline.decode_packed`) on the card with an identity
+    decode: (a) random bf16 64x64 clips of every TAIL_LENGTHS length at chunk
+    4, with and without the median filter, uint8 and YUV420, each bitwise
+    equal to the whole-clip route (to_uint8 / to_yuv420 of median_filter_3d
+    over the clip); (b) a 248-frame 512x512 bf16 clip already on the card:
+    the device memory the tail allocates beyond it (at most TAIL_BAR_GIB)
+    and its seconds, beside the whole-clip route's, and their outputs
+    bitwise equal."""
+    import types
+
+    import numpy as np
+    from vexpress_torch.pipelines import VExpressPipeline
+    from vexpress_torch.pipelines.media import median_filter_3d, to_uint8, to_yuv420
+
+    dev = torch.device("cuda")
+    stub = types.SimpleNamespace(device=dev, _decode_chunk=lambda frames: frames)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def tail(video, chunk, median_filter, yuv):
+        out = VExpressPipeline.decode_latents(stub, video, chunk=chunk,
+                                              median_filter=median_filter,
+                                              as_uint8=not yuv, as_yuv420=yuv)
+        return list(out) if yuv else [out]
+
+    def whole(video, median_filter, yuv):
+        with torch.inference_mode():
+            v = median_filter_3d(video) if median_filter else video
+            out = to_yuv420(v) if yuv else (to_uint8(v),)
+            return [p.cpu().numpy() for p in out]
+
+    def same(a, b):
+        return len(a) == len(b) and all(x.shape == y.shape and np.array_equal(x, y)
+                                        for x, y in zip(a, b))
+
+    bad = []
+    for f in TAIL_LENGTHS:
+        video = torch.rand((f, 64, 64, 3), generator=gen, device=dev).to(torch.bfloat16)
+        for median_filter in (True, False):
+            for yuv in (False, True):
+                if not same(tail(video, TAIL_CHUNK, median_filter, yuv),
+                            whole(video, median_filter, yuv)):
+                    bad.append((f, median_filter, "yuv420" if yuv else "uint8"))
+    clip = torch.rand((TAIL_FRAMES, 512, 512, 3), generator=gen, device=dev).to(torch.bfloat16)
+    rows, outs = {}, {}
+    for route in ("chunked", "whole"):
+        for yuv in (False, True):
+            name = f"{route}_{'yuv420' if yuv else 'uint8'}"
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs[name] = (tail(clip, 16, True, yuv) if route == "chunked"
+                          else whole(clip, True, yuv))
+            torch.cuda.synchronize()
+            rows[name] = dict(seconds=time.perf_counter() - t0,
+                              increase_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+    equal = {k: same(outs[f"chunked_{k}"], outs[f"whole_{k}"]) for k in ("uint8", "yuv420")}
+    log(f"[decode_tail] identity decode, chunk {TAIL_CHUNK}, 64x64 bf16, lengths "
+        f"{list(TAIL_LENGTHS)}, filter on and off, uint8 and YUV420: "
+        f"{len(TAIL_LENGTHS) * 4 - len(bad)} of {len(TAIL_LENGTHS) * 4} bitwise equal to the "
+        f"whole-clip route; {TAIL_FRAMES} frames 512x512 bf16, filtered, chunk 16: "
+        f"{json.dumps(rows)}, chunked equal to whole {equal}")
+    if bad:
+        raise PhaseError(f"the chunked tail differs from the whole-clip route at (frames, "
+                         f"filter, output) {bad}")
+    if not all(equal.values()):
+        raise PhaseError(f"the chunked tail differs from the whole-clip route at "
+                         f"{TAIL_FRAMES} frames: {equal}")
+    over = {k: r["increase_gib"] for k, r in rows.items()
+            if k.startswith("chunked") and r["increase_gib"] > TAIL_BAR_GIB}
+    if over:
+        raise PhaseError(f"the chunked tail allocated {over} GiB beyond its "
+                         f"{TAIL_FRAMES}-frame clip (bar {TAIL_BAR_GIB})")
+    return dict(lengths=list(TAIL_LENGTHS), chunk=TAIL_CHUNK, frames=TAIL_FRAMES, rows=rows)
 
 
 def _shape_key(row) -> tuple:
@@ -1774,6 +1840,7 @@ def cli_full_phase(torch) -> dict:
     from vexpress_torch.cli import infer
     from vexpress_torch.ops import flash, launches
     from vexpress_torch.pipelines.context import compute_context_windows
+    from vexpress_torch.tools.common import PeakSplit
 
     args = infer.parse_args(CLI_FULL_ARGV)
     size, frames, ctx = args.image_width, FULL_FRAMES, args.context_frames
@@ -1796,7 +1863,7 @@ def cli_full_phase(torch) -> dict:
 
     hooks = [pipe.denoising_unet.register_forward_hook(watch("denoising_unet")),
              pipe.vae.decoder.register_forward_hook(watch("vae.decoder"))]
-    split = PeakSplit(torch, pipe)
+    split = PeakSplit(pipe)
     flash.FLASH_LITE = True
     try:
         launches.reset()
@@ -2678,6 +2745,7 @@ def main() -> int:
                       ("train_parity", lambda: train_parity_phase(torch)),
                       ("lora_parity", lambda: lora_parity_phase(torch)),
                       ("full", lambda: full_phase(torch, FULL_STEPS)),
+                      ("decode_tail", lambda: decode_tail_phase(torch)),
                       ("train_full", lambda: train_full_phase(torch)),
                       ("train_cli", lambda: train_cli_phase(torch)),
                       ("cli_full", lambda: cli_full_phase(torch)),

@@ -49,6 +49,7 @@ want = {"vexpress_torch.train", "vexpress_torch.train.config", "vexpress_torch.t
         "vexpress_torch.tools.bench_motion_variants", "vexpress_torch.tools.ptxas_report",
         "vexpress_torch.train.lora", "vexpress_torch.train.dataset", "vexpress_torch.io.checkpoints",
         "vexpress_torch.cli.train", "vexpress_torch.cli.prepare_dataset",
+        "vexpress_torch.cli.visualize_dataset",
         "vexpress_torch.train.recipe", "vexpress_torch.train.step_split",
         "vexpress_torch.tools.common", "vexpress_torch.tools.unet_step_flops",
         "vexpress_torch.tools.profile_train_step", "vexpress_torch.tools.profile_step",

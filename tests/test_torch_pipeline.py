@@ -32,7 +32,7 @@ from vexpress_torch.pipelines import context as t_ctx
 from vexpress_torch.pipelines import media as t_media
 from vexpress_torch.pipelines import pipeline as t_pipe
 
-from .torch_port_utils import jax_init, psnr, rand, t
+from .torch_port_utils import close, jax_init, psnr, rand, t
 
 # ----------------------------------------------------------------- DDIM
 
@@ -205,3 +205,21 @@ def test_pipeline_uint8_median_output(pipelines):
     assert filtered.dtype == np.uint8 and filtered.shape == (L, H, W, 3)
     expect = t_media.to_uint8(t_media.median_filter_3d(t(video))).numpy()
     np.testing.assert_array_equal(filtered, expect)
+
+
+def test_decode_latents_chunked_tail_matches_jax(pipelines):
+    """The tiny VAE decoded at chunk 2 over 7 frames (three whole chunks and
+    a one-frame tail): the filtered float output against JAX's
+    decode_latents at 1e-5, and the chunked uint8 tail bitwise equal to the
+    whole-clip route on the same decoded frames."""
+    jp, tp = pipelines
+    latents = np.random.default_rng(11).standard_normal((7, H // 8, W // 8, 4)).astype(np.float32)
+    want = jp.decode_latents(jnp.asarray(latents), chunk=2, median_filter=True)
+    got = tp.decode_latents(torch.from_numpy(latents), chunk=2, median_filter=True)
+    assert got.shape == (7, H, W, 3) and got.dtype == np.float32
+    close(got, want, 1e-5)
+    video = tp.decode_latents(torch.from_numpy(latents), chunk=2)
+    packed = tp.decode_latents(torch.from_numpy(latents), chunk=2, median_filter=True,
+                               as_uint8=True)
+    np.testing.assert_array_equal(packed,
+                                  t_media.to_uint8(t_media.median_filter_3d(t(video))).numpy())

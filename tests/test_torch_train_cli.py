@@ -5,8 +5,10 @@ files key for key and value for value; train-state round trips for LoRA
 with AdamW and for module training with the 8-bit Adam), telemetry (the same
 files, timestamps and run ids aside), `vexpress_torch.cli.train` end to end
 on `--device cpu` (LoRA, checkpoint, resume, the adapter export, then the
-inference CLI with `--lora_path` on it), and `prepare_dataset`'s
-audio-embeddings (1e-5) and golden-check subcommands.
+inference CLI with `--lora_path` on it), `prepare_dataset`'s
+audio-embeddings (1e-5) and golden-check subcommands, `visualize_dataset`
+(the frames it hands save_video, bitwise) and `read_video_rgb`'s
+`max_frames`.
 """
 
 import argparse
@@ -17,6 +19,7 @@ import os
 import pathlib
 import random
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -24,15 +27,18 @@ import torch
 
 from vexpress_tpu.io import checkpoints as j_ckpt
 from vexpress_tpu.models import wav2vec2 as j_w2v
+from vexpress_tpu.pipelines import media as j_media
 from vexpress_tpu.pipelines import pipeline as j_pipe
 from vexpress_tpu.train import dataset as j_ds
 from vexpress_tpu.utils import observability as j_obs
 from vexpress_torch.cli import infer as t_infer
 from vexpress_torch.cli import prepare_dataset as t_prep
 from vexpress_torch.cli import train as t_cli
+from vexpress_torch.cli import visualize_dataset as t_vis
 from vexpress_torch.io import checkpoints as t_ckpt
 from vexpress_torch.io import load_pipeline
 from vexpress_torch.models import wav2vec2 as t_w2v
+from vexpress_torch.pipelines import media as t_media
 from vexpress_torch.train import TrainConfig, TrainState, make_optimizer
 from vexpress_torch.train import dataset as t_ds
 from vexpress_torch.train import lora as tl
@@ -107,6 +113,57 @@ def test_dataset_helpers_match_jax(tmp_path):
     torch.save({"global_embeds": torch.from_numpy(rng.normal(size=(9, 1, 8)))}, path)
     np.testing.assert_array_equal(t_ds.load_audio_embeddings(path),
                                   j_ds.load_audio_embeddings(path))
+
+
+def _jax_cli(name: str):
+    spec = importlib.util.spec_from_file_location(f"jax_cli_{name}", REPO / "cli" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_visualize_dataset_matches_jax(fixture_meta, tmp_path, monkeypatch):  # noqa: F811
+    """The port's visualize_dataset hands save_video the same frames, file
+    names, fps and options as the JAX CLI (the mp4s themselves are not
+    compared: the encoder writes different files for the same frames)."""
+    calls = {"jax": [], "port": []}
+
+    def capture(side):
+        def save_video(video, audio_path, output_path, fps=30.0, apply_median_filter=True):
+            calls[side].append((np.array(video), audio_path, os.path.basename(output_path), fps,
+                                apply_median_filter))
+        return save_video
+
+    monkeypatch.setattr(j_media, "save_video", capture("jax"))
+    monkeypatch.setattr(t_media, "save_video", capture("port"))
+    flags = ["--data_meta_paths", fixture_meta, "--num_samples", "2", "--num_frames", "4",
+             "--image_size", "64", "--fps", "3", "--seed", "1"]
+    monkeypatch.setattr(sys, "argv", ["visualize_dataset.py", *flags,
+                                      "--output_dir", str(tmp_path / "jax")])
+    _jax_cli("visualize_dataset").main()
+    made = t_vis.main([*flags, "--output_dir", str(tmp_path / "port")])
+    assert made == 2 and len(calls["jax"]) == 2 and len(calls["port"]) == 2
+    for (jv, *jrest), (tv, *trest) in zip(calls["jax"], calls["port"]):
+        assert tv.dtype == np.uint8 and tv.shape == jv.shape == (3 + 4, 64, 4 * 64, 3)
+        np.testing.assert_array_equal(tv, jv)
+        assert trest == jrest
+    assert [c[2] for c in calls["port"]] == ["sample_0.mp4", "sample_1.mp4"]
+
+
+def test_read_video_rgb_max_frames_matches_jax(tmp_path):
+    import cv2
+
+    path = str(tmp_path / "clip.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25, (32, 32))
+    rng = np.random.default_rng(0)
+    for _ in range(6):
+        writer.write(rng.integers(0, 255, size=(32, 32, 3), dtype=np.uint8))
+    writer.release()
+    for max_frames in (None, 1, 3, 6, 10):
+        got = t_media.read_video_rgb(path, max_frames=max_frames)
+        want = j_media.read_video_rgb(path, max_frames=max_frames)
+        assert got.shape[0] == (6 if max_frames is None else min(max_frames, 6))
+        np.testing.assert_array_equal(got, want)
 
 
 # ------------------------------------------------------------ exports and checkpoints
@@ -470,10 +527,7 @@ def test_prepare_dataset_audio_embeddings_matches_jax(tmp_path, monkeypatch):
     _write_wav(wav, seconds=0.5)
     monkeypatch.setattr(j_w2v, "Wav2Vec2Config", functools.partial(j_w2v.Wav2Vec2Config, **tiny))
     monkeypatch.setattr(t_w2v, "Wav2Vec2Config", functools.partial(t_w2v.Wav2Vec2Config, **tiny))
-    spec = importlib.util.spec_from_file_location("jax_prepare_dataset",
-                                                  REPO / "cli" / "prepare_dataset.py")
-    j_prep = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(j_prep)
+    j_prep = _jax_cli("prepare_dataset")
     jax_out, port_out = str(tmp_path / "jax.pt"), str(tmp_path / "port.pt")
     j_prep.cmd_audio_embeddings(argparse.Namespace(input=wav, output=jax_out, weights=weights))
     t_prep.main(["audio-embeddings", "--input", wav, "--output", port_out, "--weights", weights,

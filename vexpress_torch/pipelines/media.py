@@ -18,37 +18,49 @@ import torch.nn.functional as F
 from ..utils.media_native import mux_audio_video, native_available
 
 
-def reflect_index(n: int, pad: int) -> torch.Tensor:
-    """Indices [-pad, n + pad) of an axis of length n reflected at both ends
-    (numpy's and jnp.pad's "reflect": the edge is not repeated; an axis of
-    one element repeats it)."""
-    i = torch.arange(-pad, n + pad).abs()
+def halo_index(n: int, start: int, stop: int) -> torch.Tensor:
+    """The frames `_median_core` filters frames [start, stop) of an n-frame
+    clip from: [start - 1, stop + 1), a one-frame halo on each side,
+    reflected at the clip's ends as numpy's and jnp.pad's "reflect" does
+    (the edge is not repeated; a one-frame clip repeats its frame)."""
+    i = torch.arange(start - 1, stop + 1).abs()
     if n == 1:
         return torch.zeros_like(i)
-    period = 2 * (n - 1)
-    i = i % period
-    return torch.where(i >= n, period - i, i)
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
 
 
-def median_filter_3d(video: torch.Tensor, kernel_size: int = 3,
-                     frame_chunk: int = 4) -> torch.Tensor:
-    """3-D median over (F, H, W, C), reflect padding in frames and space;
-    `frame_chunk` output frames at a time bound the k^3-patch stack. The
-    frame axis is reflected through an index vector, as `jnp.pad` reflects
-    it, so a clip of any length (one frame too) is filtered."""
-    k = kernel_size
-    pad = k // 2
-    f, h, w, c = video.shape
-    v = video.permute(0, 3, 1, 2)[reflect_index(f, pad).to(video.device)]  # (F+2p, C, H, W)
-    v = F.pad(v, (pad, pad, pad, pad), mode="reflect")
+def _median_core(seg: torch.Tensor, frame_chunk: int = 4) -> torch.Tensor:
+    """3x3x3 median of the core frames of `seg` (F + 2, H, W, C), whose first
+    and last frames are halo, with reflect padding in space: (F, H, W, C).
+    `frame_chunk` output frames at a time bound the 27-patch stack."""
+    k, pad = 3, 1
+    f, h, w = seg.shape[0] - 2 * pad, seg.shape[1], seg.shape[2]
+    v = F.pad(seg.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
     outs = []
     for s in range(0, f, frame_chunk):
         n = min(frame_chunk, f - s)
-        seg = v[s : s + n + 2 * pad]  # (n + 2p, C, H+2p, W+2p)
-        patches = [seg[dt : dt + n, :, dy : dy + h, dx : dx + w]
+        part = v[s : s + n + 2 * pad]  # (n + 2p, C, H+2p, W+2p)
+        patches = [part[dt : dt + n, :, dy : dy + h, dx : dx + w]
                    for dt in range(k) for dy in range(k) for dx in range(k)]
         outs.append(torch.stack(patches, dim=0).median(dim=0).values)
     return torch.cat(outs, dim=0).permute(0, 2, 3, 1)
+
+
+def median_filter_3d(video: torch.Tensor, frame_chunk: int = 4) -> torch.Tensor:
+    """3-D median over (F, H, W, C), reflect padding in frames and space. The
+    frame axis is reflected through an index vector, as `jnp.pad` reflects
+    it, so a clip of any length (one frame too) is filtered."""
+    f = video.shape[0]
+    return _median_core(video[halo_index(f, 0, f).to(video.device)], frame_chunk)
+
+
+def median_filter_3d_chunked(video: torch.Tensor, chunk: int = 32) -> torch.Tensor:
+    """`median_filter_3d` in chunks of `chunk` frames, each filtered from
+    itself and a one-frame halo on each side, so that no more than chunk + 2
+    frames are copied at a time; equal to the whole-clip filter."""
+    f = video.shape[0]
+    return torch.cat([_median_core(video[halo_index(f, s, min(s + chunk, f)).to(video.device)])
+                      for s in range(0, f, chunk)], dim=0)
 
 
 def to_uint8(video: torch.Tensor) -> torch.Tensor:
@@ -60,15 +72,16 @@ def to_yuv420(video: torch.Tensor):
     """(F, H, W, 3) RGB in [0, 1] -> studio-swing BT.601 YUV420 planes: Y
     uint8 (F, H, W), U and V uint8 (F, H/2, W/2) from the 2x2 mean of the
     full-resolution chroma. What the mp4 encode needs, computed on the device
-    so that 1.5 bytes per pixel leave it instead of 3."""
+    so that 1.5 bytes per pixel leave it instead of 3. Every step is
+    elementwise (the 2x2 mean too), so a frame's planes do not depend on the
+    frames converted beside it."""
     x = video.float().clamp(0.0, 1.0) * 255.0
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
     y = 16.0 + (65.738 * r + 129.057 * g + 25.064 * b) / 256.0
     u = 128.0 + (-37.945 * r - 74.494 * g + 112.439 * b) / 256.0
     v = 128.0 + (112.439 * r - 94.154 * g - 18.285 * b) / 256.0
-    f, h, w = y.shape
-    u = u.reshape(f, h // 2, 2, w // 2, 2).mean(dim=(2, 4))
-    v = v.reshape(f, h // 2, 2, w // 2, 2).mean(dim=(2, 4))
+    u = (u[:, 0::2, 0::2] + u[:, 0::2, 1::2] + u[:, 1::2, 0::2] + u[:, 1::2, 1::2]) / 4
+    v = (v[:, 0::2, 0::2] + v[:, 0::2, 1::2] + v[:, 1::2, 0::2] + v[:, 1::2, 1::2]) / 4
     return (torch.round(y).clamp(16, 235).to(torch.uint8),
             torch.round(u).clamp(16, 240).to(torch.uint8),
             torch.round(v).clamp(16, 240).to(torch.uint8))
@@ -103,7 +116,7 @@ def save_video(video: np.ndarray, audio_path: Optional[str], output_path: str,
     if apply_median_filter:
         if video.dtype == np.uint8:
             video = video.astype(np.float32) / 255.0
-        video = median_filter_3d(torch.from_numpy(np.ascontiguousarray(video))).numpy()
+        video = median_filter_3d_chunked(torch.from_numpy(np.ascontiguousarray(video))).numpy()
     frames = video if video.dtype == np.uint8 else (np.clip(video, 0.0, 1.0) * 255).astype(np.uint8)
     f, h, w, _ = frames.shape
     temp = str(out.with_name(out.stem + "-temp" + out.suffix))
@@ -147,8 +160,9 @@ def load_image_rgb(path: str, height: int, width: int) -> np.ndarray:
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
 
 
-def read_video_rgb(path: str) -> np.ndarray:
-    """-> (F, H, W, 3) uint8 RGB frames, decoded with cv2."""
+def read_video_rgb(path: str, max_frames: Optional[int] = None) -> np.ndarray:
+    """-> (F, H, W, 3) uint8 RGB frames, decoded with cv2; decoding stops
+    after `max_frames` frames when it is given."""
     import cv2
 
     cap = cv2.VideoCapture(str(path))
@@ -158,6 +172,8 @@ def read_video_rgb(path: str) -> np.ndarray:
         if not ok:
             break
         frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+        if max_frames is not None and len(frames) >= max_frames:
+            break
     cap.release()
     if not frames:
         raise RuntimeError(f"no frames decoded from {path}")

@@ -39,7 +39,7 @@ from ..models.vkps_guider import VKpsGuider
 from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from .audio import audio_frame_windows
 from .context import compute_context_windows
-from .media import median_filter_3d, to_uint8, to_yuv420
+from .media import _median_core, halo_index, median_filter_3d_chunked, to_uint8, to_yuv420
 
 LATENT_SCALE = 0.18215
 
@@ -55,6 +55,74 @@ def _window_tables(windows: np.ndarray, inv_counts: np.ndarray, window_group: in
     win_mask = np.concatenate([np.ones(n_windows, np.float32), np.zeros(pad, np.float32)])
     win_w = (inv_counts[win_idx] * win_mask[:, None]).reshape(n_groups, g, win_size)
     return win_idx.reshape(n_groups, g, win_size).astype(np.int64), win_w.astype(np.float32)
+
+
+class HostDownload:
+    """The packed chunks of an n-frame clip, copied in clip order into one
+    host buffer a plane. On the card the buffers are pinned and each copy is
+    enqueued on a copy stream once an event of the compute stream has passed,
+    so that one chunk's download overlaps the next chunk's decode and filter;
+    `result` waits for the copies once."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.n, self.at, self.host = n, 0, None
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def put(self, planes) -> None:
+        if self.host is None:
+            self.host = [torch.empty((self.n,) + tuple(p.shape[1:]), dtype=p.dtype,
+                                     pin_memory=self.stream is not None) for p in planes]
+        k = planes[0].shape[0]
+        dst = [h[self.at : self.at + k] for h in self.host]
+        self.at += k
+        if self.stream is None:
+            for d, p in zip(dst, planes):
+                d.copy_(p)
+            return
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(planes[0].device))
+        self.stream.wait_event(ready)
+        with torch.cuda.stream(self.stream):
+            for d, p in zip(dst, planes):
+                d.copy_(p, non_blocking=True)
+        for p in planes:
+            p.record_stream(self.stream)  # its memory is not reused before the copy lands
+
+    def result(self) -> list:
+        if self.stream is not None:
+            self.stream.synchronize()
+        return [h.numpy() for h in self.host]
+
+
+def decode_packed(decode: Callable[[torch.Tensor], torch.Tensor], latents: torch.Tensor,
+                  chunk: int, median_filter: bool, pack) -> list:
+    """The decode tail one chunk at a time: decode, 3x3x3 median filter,
+    `pack` (to_uint8 or to_yuv420) on the device, download. Chunk i + 1 is
+    decoded before chunk i is filtered, since its first frame is chunk i's
+    right halo; the frame before chunk i is kept as its left halo. At the
+    clip's ends the halo is reflected through `halo_index` (the last frame's
+    reflection, frame n - 2, lies in the previous chunk when the last chunk
+    holds one frame). No device tensor holds more than chunk + 2 frames of
+    the clip. Returns the host planes (n, ...) of `pack`."""
+    n = latents.shape[0]
+    out = HostDownload(n, latents.device)
+    before, cur = None, decode(latents[:chunk])
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        nxt = decode(latents[e : e + chunk]) if e < n else None
+        piece = cur
+        if median_filter:
+            frames = ([before] if before is not None else []) + list(cur.split(1))
+            if nxt is not None:
+                frames.append(nxt[:1])
+            lo = s - 1 if before is not None else s  # the clip index of frames[0]
+            piece = _median_core(torch.cat([frames[i - lo] for i in
+                                            halo_index(n, s, e).tolist()]))
+            before = cur[-1:].clone()
+        planes = pack(piece)
+        out.put(planes if isinstance(planes, tuple) else (planes,))
+        cur = nxt
+    return out.result()
 
 
 def blend_windows(predict_fn, latents: torch.Tensor, t: int,
@@ -245,19 +313,21 @@ class VExpressPipeline:
                        as_uint8: bool = False, as_yuv420: bool = False):
         """(L, h, w, 4) -> (L, H, W, 3), decoded `chunk` frames at a time.
         Float32 in [0, 1], uint8 when `as_uint8`, or the (Y, U, V) uint8
-        planes of `to_yuv420` when `as_yuv420`."""
+        planes of `to_yuv420` when `as_yuv420`. Packed output is filtered,
+        packed and downloaded a chunk at a time (`decode_packed`); float
+        output keeps the whole clip on the device."""
         if as_uint8 and as_yuv420:
             raise ValueError("pick one of as_uint8 / as_yuv420")
         latents = torch.as_tensor(latents, device=self.device)
         with torch.inference_mode():
+            if as_uint8 or as_yuv420:
+                planes = decode_packed(self._decode_chunk, latents, chunk, median_filter,
+                                       to_yuv420 if as_yuv420 else to_uint8)
+                return tuple(planes) if as_yuv420 else planes[0]
             video = torch.cat([self._decode_chunk(latents[i : i + chunk])
                                for i in range(0, latents.shape[0], chunk)], dim=0)
             if median_filter:
-                video = median_filter_3d(video)
-            if as_yuv420:
-                return tuple(p.cpu().numpy() for p in to_yuv420(video))
-            if as_uint8:
-                return to_uint8(video).cpu().numpy()
+                video = median_filter_3d_chunked(video)
             return video.float().cpu().numpy()
 
     # ------------------------------------------------------------------ denoise

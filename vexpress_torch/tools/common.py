@@ -1,7 +1,8 @@
 """What the measurement tools share: the card's line, the H100's peaks,
 CUDA-event timing, the chained marginal timer, the kernel families of a
-torch.profiler trace, the device and model options, and the seeded
-pipeline and clip every pipeline tool runs.
+torch.profiler trace, the peak memory of a pipeline call by stretch, the
+device and model options, and the seeded pipeline and clip every pipeline
+tool runs.
 
 Every tool runs on the CUDA device unless given `--device cpu`; without a
 card it raises. On the CPU the kernels' plain versions run and times are
@@ -209,6 +210,38 @@ def nonfinite_outputs(pipe: VExpressPipeline) -> Iterator[Callable[[], list]]:
     finally:
         for h in hooks:
             h.remove()
+
+
+class PeakSplit:
+    """Peak allocated device memory by stretch of one pipeline call on the
+    card, in GiB: up to the first denoising-UNet call (set-up and
+    conditioning), up to the first VAE-decoder call (denoise), and the rest
+    (decode). Each stretch resets the peaks for the next, the reserved peak
+    too, so `reserved` keeps each stretch's reserved peak beside it: a
+    whole-call peak is the largest of its stretches'."""
+
+    def __init__(self, pipe: VExpressPipeline):
+        self.peaks: Dict[str, float] = {}
+        self.reserved: Dict[str, float] = {}
+        self.hooks = [pipe.denoising_unet.register_forward_pre_hook(self._mark("conditioning")),
+                      pipe.vae.decoder.register_forward_pre_hook(self._mark("denoise"))]
+
+    def _read(self, name: str) -> None:
+        self.peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        self.reserved[name] = torch.cuda.max_memory_reserved() / 2**30
+
+    def _mark(self, name):
+        def hook(*_):
+            if name not in self.peaks:
+                self._read(name)
+                torch.cuda.reset_peak_memory_stats()
+        return hook
+
+    def finish(self) -> Dict[str, float]:
+        self._read("decode")
+        for h in self.hooks:
+            h.remove()
+        return self.peaks
 
 
 def peak_mib(device: torch.device) -> Optional[float]:

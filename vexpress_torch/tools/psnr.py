@@ -29,7 +29,7 @@ def load_frames(path: str, max_frames: Optional[int] = None) -> np.ndarray:
     if path.endswith(".npy"):
         frames = np.load(path)
     else:
-        frames = read_video_rgb(path).astype(np.float32) / 255.0
+        frames = read_video_rgb(path, max_frames).astype(np.float32) / 255.0
     return frames if max_frames is None else frames[:max_frames]
 
 
