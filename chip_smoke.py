@@ -46,6 +46,16 @@ Phases, in order; any failure raises and the script exits non-zero:
   full          the streamed pipeline at full SD1.5 width in bf16 at 512x512
                 with seeded random weights; checks the output and the kernel
                 launches
+  fused         full's pipeline and inputs in mode="fused" (each denoise step
+                one CUDA graph, K1 inside it) against full's streamed run;
+                then the CLI's generate at cli_full's settings without
+                --save_gpu_memory (DPM-Solver++ 12, K2 inside the graph) with
+                --mode fused against --mode streamed, and again after an
+                in-place load of new UNet weights (the cached graph serves
+                it): each fused call replayed a graph, launched the kernels
+                by shape as streamed did, stayed finite and reached PSNR > 45
+                dB against streamed; capture and step times, memory by
+                stretch and the graph pool's reserve are printed
   decode_tail   the chunked decode tail with an identity decode: every tail
                 length from 1 to chunk + 1 at chunk 4, filter on and off,
                 uint8 and YUV420, bitwise equal to the whole-clip route; and
@@ -1125,6 +1135,9 @@ def trace_phase(torch) -> dict:
 
 
 FULL_SIZE, FULL_FRAMES, FULL_CONTEXT, FULL_OVERLAP = 512, 44, 24, 4
+# what a phase keeps for a later one: full's pipeline, inputs, video and
+# final latents (fused), cli_full's YUV420 planes (sharded)
+KEPT = {}
 
 
 def full_pipeline(torch, steps: int):
@@ -1173,6 +1186,13 @@ def full_phase(torch, steps: int) -> dict:
 
     hooks = [pipe.denoising_unet.register_forward_hook(watch("denoising_unet")),
              pipe.vae.decoder.register_forward_hook(watch("vae.decoder"))]
+    denoise = pipe._denoise  # the final latents are kept for the fused phase
+
+    def keep_latents(*a, **k):
+        KEPT["full_latents"] = denoise(*a, **k)
+        return KEPT["full_latents"]
+
+    pipe._denoise = keep_latents
     split = PeakSplit(pipe)
     launches.reset()
     t0 = time.perf_counter()
@@ -1182,6 +1202,9 @@ def full_phase(torch, steps: int) -> dict:
     by_shape = {k[1:]: n for k, n in launches.shapes.items() if k[0] == "flash_fwd"}
     for h in hooks:
         h.remove()
+    del pipe._denoise
+    KEPT["full"] = dict(pipe=pipe, kw=kw, video=video, phases_s=dict(pipe.timings),
+                        by_shape=by_shape)
     n_windows = compute_context_windows(L, ctx, ovl)[0].shape[0]
     expected = expected_flash_launches(models.unet_config, H // 8, W // 8, ctx, steps * n_windows)
     peaks = split.finish()
@@ -1211,6 +1234,175 @@ def full_phase(torch, steps: int) -> dict:
                 resident_before_gib=resident_gib, params=n_params,
                 steps=steps, frames=L,
                 windows=n_windows, video_std=float(video.std()))
+
+
+def _pipeline_run(torch, pipe, call):
+    """One pipeline call made by `call()` with its launches and final
+    latents: (output, latents, seconds, flash launches by kernel and shape,
+    the fused cache entry the call ran, its replays in the call, whether the
+    call captured it)."""
+    from vexpress_torch.ops import launches
+
+    kept, denoise = {}, pipe._denoise
+
+    def keep_latents(*a, **k):
+        latents = denoise(*a, **k)
+        kept["latents"] = latents.clone()  # a fused call's are its graph's output buffer
+        return latents
+
+    pipe._denoise = keep_latents
+    before = {id(e): (e, e.replays, e.graph) for e in pipe._step_cache.values()}
+    try:
+        launches.reset()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        del pipe._denoise
+    by_shape = {k: n for k, n in launches.shapes.items() if k[0].startswith("flash")}
+    ran = [e for e in pipe._step_cache.values()
+           if id(e) not in before or e.replays != before[id(e)][1]]
+    entry = ran[0] if len(ran) == 1 else None
+    replays = entry.replays - before.get(id(entry), (None, 0))[1] if entry else 0
+    captured = entry is not None and before.get(id(entry), (None, 0, None))[2] is None
+    return out, kept["latents"], run_s, by_shape, entry, replays, captured
+
+
+def _planes_psnr(a, b) -> float:
+    import numpy as np
+
+    return _psnr(np.concatenate([p.reshape(-1) for p in a]).astype(np.float32) / 255.0,
+                 np.concatenate([p.reshape(-1) for p in b]).astype(np.float32) / 255.0)
+
+
+def fused_phase(torch) -> dict:
+    """The fused mode at full width, each denoise step one CUDA graph: (a)
+    full's pipeline and inputs (SD1.5 geometry, bf16, 512x512, 44 frames,
+    CFG 3.5, DDIM 25) in mode="fused" against full's streamed run: capture
+    s, s/step beside streamed's, peak allocated and reserved by stretch, K1
+    launches by shape, max |d| of the latents, PSNR of the decoded video;
+    (b) the CLI's generate at cli_full's settings without --save_gpu_memory
+    (DPM-Solver++ 12, K2, YUV420) with --mode fused against --mode
+    streamed; (c) an in-place load of new weights into the denoising UNet
+    and (b) again, the fused call served by its cached graph. Each fused
+    call must have replayed a torch.cuda.CUDAGraph, launched the kernels by
+    shape as its streamed twin did, kept its outputs finite and reached
+    PSNR > 45 dB against it."""
+    import numpy as np
+    from vexpress_torch.cli import infer
+    from vexpress_torch.io.loaders import init_random_
+    from vexpress_torch.ops import flash
+    from vexpress_torch.tools.common import PeakSplit, nonfinite_outputs
+
+    full = KEPT.pop("full")
+    streamed_latents = KEPT.pop("full_latents")
+    pipe, kw = full["pipe"], full["kw"]
+    steps = kw["num_inference_steps"]
+    failures = []
+
+    def check(name, entry, replays, want_replays, by_shape, want_by_shape, psnr, latents,
+              nonfinite=()):
+        if not isinstance(getattr(entry, "graph", None), torch.cuda.CUDAGraph):
+            failures.append(f"{name}: no CUDA graph replayed")
+        if replays != want_replays:
+            failures.append(f"{name}: {replays} replays, expected {want_replays}")
+        if by_shape != want_by_shape or not by_shape:
+            failures.append(f"{name}: launches by shape {by_shape}, streamed {want_by_shape}")
+        if not psnr > 45.0:
+            failures.append(f"{name}: PSNR {psnr:.2f} dB against streamed (needs > 45)")
+        if nonfinite or not bool(torch.isfinite(latents).all()):
+            failures.append(f"{name}: non-finite values (modules {sorted(nonfinite)})")
+
+    # (a) DDIM 25 at full's settings
+    split = PeakSplit(pipe)
+    with nonfinite_outputs(pipe) as read_flags:
+        video, latents, run_s, by_shape, entry, replays, _ = _pipeline_run(
+            torch, pipe, lambda: pipe(**kw, mode="fused"))
+    peaks, reserved = split.finish(), dict(split.reserved)
+    nonfinite = read_flags()
+    timings = dict(pipe.timings)
+    capture_s = timings.get("fused warm-up step and capture", float("nan"))
+    fused_step_s = (timings["denoise"] - capture_s) / (steps - 1)
+    streamed_step_s = full["phases_s"]["denoise"] / steps
+    max_err = float((latents - streamed_latents).abs().max())
+    psnr = _psnr(pipe.decode_latents(latents), pipe.decode_latents(streamed_latents))
+    want = {("flash_fwd",) + k: n for k, n in full["by_shape"].items()}
+    check("ddim", entry, replays, steps - 1, by_shape, want, psnr, latents, nonfinite)
+    if video.shape != full["video"].shape or video.dtype != np.uint8:
+        failures.append(f"ddim: video {video.shape} {video.dtype}")
+    # what the graph's private pool holds: the reserve before and after the
+    # entry is dropped, each after empty_cache
+    torch.cuda.empty_cache()
+    reserved_with = torch.cuda.memory_reserved() / 2**30
+    pipe._step_cache.clear()
+    entry = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_gib = reserved_with - torch.cuda.memory_reserved() / 2**30
+    log(f"[fused] DDIM {steps}, {kw['video_length']} frames at {kw['width']}x{kw['height']}, "
+        f"CFG {kw['guidance_scale']}: warm-up step and capture {capture_s:.2f} s, s/step "
+        f"fused {fused_step_s:.4f} (replays) against streamed {streamed_step_s:.4f}, denoise "
+        f"{timings['denoise']:.2f} s (streamed {full['phases_s']['denoise']:.2f}), call "
+        f"{run_s:.2f} s, phases {json.dumps(timings)}; peak allocated by stretch "
+        f"{json.dumps(peaks)} GiB, reserved {json.dumps(reserved)} GiB, graph pool "
+        f"{pool_gib:.2f} GiB; K1 launches by shape {by_shape}; latents max|d| {max_err:.3e}; "
+        f"decoded PSNR {psnr:.2f} dB; replays {replays}")
+    ddim = dict(capture_s=capture_s, fused_s_per_step=fused_step_s,
+                streamed_s_per_step=streamed_step_s, denoise_s=timings["denoise"],
+                streamed_denoise_s=full["phases_s"]["denoise"], call_s=run_s, phases_s=timings,
+                peak_alloc_by_stretch_gib=peaks, peak_reserved_by_stretch_gib=reserved,
+                graph_pool_gib=pool_gib, latents_max_abs_err=max_err, psnr_db=psnr,
+                replays=replays, launches=sum(by_shape.values()),
+                launches_by_shape=[[*k, n] for k, n in sorted(by_shape.items())])
+
+    # (b) and (c): the CLI's generate, DPM-Solver++ 12 with K2, fused against streamed
+    argv = [a for a in CLI_FULL_ARGV if a != "--save_gpu_memory"]
+    size, frames = infer.parse_args(argv).image_width, FULL_FRAMES
+    ref, kps, wave = synthetic_inputs(size, size, frames, seed=1)
+    inputs = dict(reference_image=ref, kps_images=kps, audio=wave, video_length=frames)
+    cli = {}
+    flash.FLASH_LITE = True
+    try:
+        for run in ("cli", "reload"):
+            if run == "reload":
+                init_random_(pipe.denoising_unet, seed=77)  # copies into the same storages
+            out = {}
+            for mode in ("fused", "streamed"):
+                args = infer.parse_args(argv + ["--mode", mode])
+                infer._check_ported(args)
+                out[mode] = _pipeline_run(torch, pipe,
+                                       lambda: infer.generate(pipe, inputs, args, True))
+            planes, latents, run_s, by_shape, entry, replays, captured = out["fused"]
+            psnr = _planes_psnr(planes, out["streamed"][0])
+            max_err = float((latents - out["streamed"][1]).abs().max())
+            check(run, entry, replays, CLI_STEPS - 1 if run == "cli" else CLI_STEPS, by_shape,
+                  out["streamed"][3], psnr, latents)
+            if run == "reload":
+                if captured or len(pipe._step_cache) != 1:
+                    failures.append("reload: the in-place load was not served by the cache")
+                moved = float((latents - cli["cli"]["latents"]).abs().max())
+                if not moved > 0:
+                    failures.append("reload: the new weights did not change the latents")
+            cli[run] = dict(latents=latents, fused_s=run_s, streamed_s=out["streamed"][2],
+                            captured=captured, replays=replays, psnr_db=psnr,
+                            latents_max_abs_err=max_err,
+                            capture_s=entry.capture_s if entry is not None else None,
+                            launches=sum(by_shape.values()),
+                            launches_by_shape=[[*k, n] for k, n in sorted(by_shape.items())])
+            log(f"[fused] CLI generate --mode fused ({run}: DPM-Solver++ {CLI_STEPS}, K2, YUV420"
+                f"{', after an in-place load of new UNet weights' if run == 'reload' else ''}): "
+                f"{run_s:.2f} s against streamed {out['streamed'][2]:.2f} s, captured "
+                f"{captured}, replays {replays}, planes PSNR {psnr:.2f} dB, latents max|d| "
+                f"{max_err:.3e}, launches by shape {by_shape}")
+    finally:
+        flash.FLASH_LITE = False
+        pipe._step_cache.clear()
+    for run in cli.values():
+        run.pop("latents")
+    if failures:
+        raise PhaseError("; ".join(failures))
+    return dict(ddim=ddim, cli=cli["cli"], reload=cli["reload"])
 
 
 TAIL_LENGTHS = (1, 2, 3, 4, 5, 8, 9, 12, 13)  # chunk 4: every tail from 1 to chunk + 1
@@ -1825,9 +2017,6 @@ CLI_STEPS = 12
 CLI_FULL_ARGV = ["--reference_image_path", "synthetic", "--audio_path", "synthetic",
                  "--sampler", "dpmpp_2m", "--num_inference_steps", str(CLI_STEPS),
                  "--save_gpu_memory"]
-# outputs kept for a later phase's comparison: cli_full's YUV420 planes
-KEPT = {}
-
 
 def cli_full_phase(torch) -> dict:
     """The inference CLI on the card: build_pipeline with the CLI's defaults
@@ -2303,13 +2492,13 @@ def _sharded_job(torch, mesh, argv, frames):
     pipe = infer.build_pipeline(args)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    final, denoise = {}, pipe._denoise_streamed
+    final, denoise = {}, pipe._denoise
 
     def keep_latents(*a, **k):
         final["latents"] = denoise(*a, **k)
         return final["latents"]
 
-    pipe._denoise_streamed = keep_latents
+    pipe._denoise = keep_latents
     flash.FLASH_LITE = True
     launches.reset()
     t0 = time.perf_counter()
@@ -2624,6 +2813,7 @@ def kernels_line(results: dict) -> list:
                      r["bounds"]["fwd"]["by"], r["errors"]["out"]["max_abs_err"])
                     for r in main_grad if r["launches"]["flash_fwd"]])
     fwd_by_path = dict(full=results["full"]["flash_launches"],
+                       fused=results["fused"]["ddim"]["launches"],
                        **{p: counts[p].get("flash_fwd", 0) for p in train_paths})
     sources = ["vexpress_torch/csrc/flash_fwd_wgmma.cuh (bf16)",
                "vexpress_torch/csrc/flash_fwd_tf32.cuh (fp32, 3xTF32)",
@@ -2680,12 +2870,15 @@ def kernels_line(results: dict) -> list:
         "vexpress_tpu/ops/flash_lite.py:68 flash_lite_fwd (pallas_call :89, body _fwd_kernel :33)",
         [(r["kernel_ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
           r["max_abs_err"]) for r in ran],
-        results["cli_full"]["lite_launches"] + sum(results["sharded"]["lite_launches"]),
+        results["cli_full"]["lite_launches"] + sum(results["sharded"]["lite_launches"])
+        + results["fused"]["cli"]["launches"] + results["fused"]["reload"]["launches"],
         plain_is="flash_lite_reference", sources=sources, k1_ms=sum(r["k1_ms"] for r in ran),
         fp32_launches_by_path=dict(
             parity_cli=parity["cli"]["launches"].get("flash_lite_fwd", 0)),
         exps=sum(r["exps"] for r in ran),
         launches_by_path=dict(cli_full=results["cli_full"]["lite_launches"],
+                              fused_cli=results["fused"]["cli"]["launches"],
+                              fused_cli_reload=results["fused"]["reload"]["launches"],
                               **{f"sharded_rank{i}": n for i, n in
                                  enumerate(results["sharded"]["lite_launches"])}),
         shapes=lite_rows))
@@ -2745,6 +2938,7 @@ def main() -> int:
                       ("train_parity", lambda: train_parity_phase(torch)),
                       ("lora_parity", lambda: lora_parity_phase(torch)),
                       ("full", lambda: full_phase(torch, FULL_STEPS)),
+                      ("fused", lambda: fused_phase(torch)),
                       ("decode_tail", lambda: decode_tail_phase(torch)),
                       ("train_full", lambda: train_full_phase(torch)),
                       ("train_cli", lambda: train_cli_phase(torch)),

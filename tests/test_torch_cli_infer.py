@@ -289,11 +289,17 @@ def test_cli_generates_video(tmp_path):
 
 @pytest.mark.parametrize("flag,value", [("--mode", "fused")])
 def test_cli_unported_options_raise(flag, value):
+    """--mode fused is ported (tests/test_torch_fused.py runs it); what the
+    pipeline refuses with it, --save_gpu_memory, raises the JAX pipeline's
+    error before any model is built, and so does an unknown mode."""
     from vexpress_torch.cli import infer
 
     args = infer.parse_args(["--reference_image_path", "r", "--audio_path", "a", flag]
-                            + ([value] if value else []))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                            + ([value] if value else []) + ["--save_gpu_memory"])
+    with pytest.raises(ValueError, match="save_memory requires mode='streamed' or 'sharded'"):
+        infer.build_pipeline(args)
+    args = infer.parse_args(["--reference_image_path", "r", "--audio_path", "a", flag, "eager"])
+    with pytest.raises(ValueError, match="unknown --mode"):
         infer.build_pipeline(args)
 
 

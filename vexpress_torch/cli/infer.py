@@ -16,7 +16,9 @@ flash-eligible attention to K2 (ops/flash_lite.py) instead of K1.
 windows over the processes of a group, one a device: run it under torchrun
 (`torchrun --nproc_per_node N -m vexpress_torch.cli.infer ...`; without
 torchrun's environment the group is this process alone). Each process takes
-the CUDA device of its LOCAL_RANK; rank 0 writes the video.
+the CUDA device of its LOCAL_RANK; rank 0 writes the video. `--mode fused`
+runs each denoise step as one CUDA graph, captured at the first step and
+replayed at every later one (on the CPU the same step, called).
 
 The work is split so that it can be driven without the files: build_pipeline
 (models, overrides, inference config, checkpoints, a LoRA adapter, stage_1),
@@ -86,7 +88,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="shard context windows over the processes of a torchrun group, one a "
                         "device")
     p.add_argument("--mode", type=str, default="",
-                   help="denoise mode {streamed, sharded}; default sharded with "
+                   help="denoise mode {streamed, fused, sharded}; default sharded with "
                         "--do_multi_devices_inference, else streamed")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of the pipeline call (host operations "
@@ -114,10 +116,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _check_ported(args) -> None:
-    """Options whose code is not ported raise, naming ROADMAP."""
-    if args.mode not in ("", "streamed", "sharded"):
-        raise NotImplementedError(f"--mode {args.mode}: only 'streamed' and 'sharded' are "
-                                  "ported (the fused mode is on ROADMAP's Not-to-port list)")
+    """Options the pipeline would refuse raise before any model is built."""
+    if args.mode not in ("", "streamed", "fused", "sharded"):
+        raise ValueError(f"unknown --mode {args.mode!r} (use 'streamed', 'fused' or 'sharded')")
+    if args.save_gpu_memory and denoise_mode(args) == "fused":
+        # the pipeline's own error (VExpressPipeline.__call__)
+        raise ValueError("save_memory requires mode='streamed' or 'sharded'")
     if args.audio_embeddings_type != "global":
         raise ValueError(f"audio_embeddings_type={args.audio_embeddings_type!r} is not "
                          "supported; only 'global' (reference inference.py:164-169)")

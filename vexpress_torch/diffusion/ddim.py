@@ -3,15 +3,17 @@
 The configuration V-Express uses at inference: scaled_linear betas
 [0.00085, 0.012], 1000 train steps, v-prediction, zero-terminal-SNR beta
 rescale, trailing timestep spacing, clip_sample=False. Schedule tables are
-host numpy; `step` is fp32 torch math on the sample's device. With eta > 0
-the caller draws the step's unit noise (from its own torch.Generator) and
-passes it in.
+host numpy; `step` is fp32 torch math on the sample's device. `build_step`
+puts one grid's alphas on the device once and indexes them with a device
+step index, so its step makes no host-to-device copy and can be captured in
+a CUDA graph. With eta > 0 the caller draws the step's unit noise (from its
+own torch.Generator) and passes it in.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +89,13 @@ class DDIMScheduler:
             raise ValueError(f"unsupported timestep_spacing: {spacing}")
         return ts
 
+    def _alphas(self, timestep: int, num_inference_steps: int) -> Tuple[np.float32, np.float32]:
+        """alphas_cumprod at `timestep` and at the step's previous timestep."""
+        t = int(timestep)
+        prev_t = t - self.config.num_train_timesteps // num_inference_steps
+        return (self.alphas_cumprod[t],
+                self.alphas_cumprod[prev_t] if prev_t >= 0 else self.final_alpha_cumprod)
+
     def step(self, model_output: torch.Tensor, timestep: int, sample: torch.Tensor,
              num_inference_steps: int, eta: float = 0.0,
              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -95,19 +104,35 @@ class DDIMScheduler:
         adds the DDIM paper's (Song et al. 2020, eq. 12) term sigma * noise,
         sigma = eta * sqrt((1-a_prev)/(1-a_t)) * sqrt(1 - a_t/a_prev), and
         needs `noise` (unit Gaussian, sample's shape)."""
+        dev = sample.device
+        a_t, a_prev = (torch.tensor(np.float32(a), dtype=torch.float32, device=dev)
+                       for a in self._alphas(timestep, num_inference_steps))
+        return self._update(model_output, sample, a_t, a_prev, eta, noise)
+
+    def build_step(self, num_inference_steps: int, eta: float = 0.0, device="cpu"):
+        """`step` over the grid `timesteps(num_inference_steps)`, its alphas
+        put on `device` once: `fn(model_output, idx, sample, noise=None)`
+        takes the grid index `idx` (a 0-d int64 tensor on `device`, or an
+        int) and equals `step` at the grid's timestep `idx` bitwise."""
+        pairs = [self._alphas(t, num_inference_steps) for t in self.timesteps(num_inference_steps)]
+        a_t, a_prev = (torch.tensor(np.array(col, np.float32), device=device)
+                       for col in zip(*pairs))
+
+        def fn(model_output: torch.Tensor, idx, sample: torch.Tensor,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+            idx = torch.as_tensor(idx, device=a_t.device)  # take: no host read of idx
+            return self._update(model_output, sample, a_t.take(idx), a_prev.take(idx), eta,
+                                noise)
+
+        return fn
+
+    def _update(self, model_output: torch.Tensor, sample: torch.Tensor,
+                alpha_prod_t: torch.Tensor, alpha_prod_prev: torch.Tensor, eta: float,
+                noise: Optional[torch.Tensor]) -> torch.Tensor:
+        """The step's arithmetic from the two alphas, 0-d fp32 tensors."""
         if eta != 0.0 and noise is None:
             raise ValueError("eta > 0 requires noise (stochastic DDIM)")
         cfg = self.config
-        t = int(timestep)
-        prev_t = t - cfg.num_train_timesteps // num_inference_steps
-        dev = sample.device
-
-        def f32(x) -> torch.Tensor:
-            return torch.tensor(np.float32(x), dtype=torch.float32, device=dev)
-
-        alpha_prod_t = f32(self.alphas_cumprod[t])
-        alpha_prod_prev = f32(self.alphas_cumprod[prev_t] if prev_t >= 0
-                              else self.final_alpha_cumprod)
         beta_prod_t = 1.0 - alpha_prod_t
         x = sample.float()
         out = model_output.float()

@@ -66,13 +66,10 @@ class DPMSolverMultistepScheduler:
 
     # ---------------------------------------------------------- table step
 
-    def build_step(self, num_inference_steps: int):
-        """The step over the whole grid, its per-step constants precomputed
-        (float64 on the host, then fp32): `fn(model_output, idx, sample,
-        prev_x0, has_prev) -> (prev_sample, x0, True)`; thread the last two
-        back in as the multistep state. Matches `step()`."""
+    def tables(self, num_inference_steps: int) -> dict:
+        """`build_step`'s per-step constants over the grid, computed in
+        float64 on the host, then fp32 (numpy arrays by name)."""
         ts = self.timesteps(num_inference_steps)
-        n = len(ts)
         a_bar_raw = self._ddim.alphas_cumprod[ts].astype(np.float64)
         a_bar = np.clip(a_bar_raw, 1e-8, 1.0 - 1e-8)
         alpha = np.sqrt(a_bar)
@@ -96,28 +93,39 @@ class DPMSolverMultistepScheduler:
             emh_safe=np.expm1(-h_safe),
             inv_2r=h_safe / np.maximum(2.0 * h_last, 1e-20),  # 1/(2r), r = h_last/h
         )
-        tables = {k: v.astype(np.float32) for k, v in tables.items()}
+        return {k: v.astype(np.float32) for k, v in tables.items()}
+
+    def build_step(self, num_inference_steps: int, device="cpu"):
+        """The step over the whole grid, its constants (`tables`) put on
+        `device` once: `fn(model_output, idx, sample, prev_x0, has_prev) ->
+        (prev_sample, x0, has_prev')`; thread the last two back in as the
+        multistep state. `idx` (grid index) and `has_prev` are 0-d tensors on
+        `device` (an int and a bool also do): the step reads neither on the
+        host, so it can be captured in a CUDA graph. Matches `step()`."""
+        n = num_inference_steps
+        tables = {k: torch.tensor(v, device=device) for k, v in self.tables(n).items()}
         if self.config.prediction_type not in _PREDICTION_TYPES:
             raise ValueError(f"unsupported prediction_type: {self.config.prediction_type}")
 
-        def fn(model_output: torch.Tensor, idx: int, sample: torch.Tensor,
-               prev_x0: torch.Tensor, has_prev: bool):
-            idx = int(idx)
-            dev = sample.device
+        def fn(model_output: torch.Tensor, idx, sample: torch.Tensor,
+               prev_x0: torch.Tensor, has_prev):
+            idx = torch.as_tensor(idx, device=device)
+            has_prev = torch.as_tensor(has_prev, device=device)
 
             def c(name):
-                return torch.tensor(tables[name][idx], dtype=torch.float32, device=dev)
+                return tables[name].take(idx)
 
             x = sample.float()
             x0 = self._pred_x0(model_output.float(), x, c("sqrt_a"), c("sqrt_b"))
             base = c("ratio") * x
-            if has_prev and 0 < idx < n - 1:
-                inv_2r = c("inv_2r")
-                d = (1.0 + inv_2r) * x0 - inv_2r * prev_x0
-                prev = base - c("alpha_p") * c("emh_safe") * d
-            else:
-                prev = base - c("alpha_p") * c("emh") * x0
-            return prev.to(sample.dtype), x0, True
+            inv_2r = c("inv_2r")
+            d = (1.0 + inv_2r) * x0 - inv_2r * prev_x0
+            second = base - c("alpha_p") * c("emh_safe") * d
+            first = base - c("alpha_p") * c("emh") * x0
+            # the second-order update where there is a previous x0 and a
+            # next grid point; the selection keeps either update bitwise
+            prev = torch.where(has_prev & (idx > 0) & (idx < n - 1), second, first)
+            return prev.to(sample.dtype), x0, torch.ones_like(has_prev)
 
         return fn
 

@@ -1,8 +1,9 @@
-"""VExpressPipeline: streamed and window-parallel inference. Counterpart of
-vexpress_tpu/pipelines/pipeline.py in `mode="streamed"` and `mode="sharded"`,
-on the exact unbucketed path the JAX package takes off the TPU: DDIM (eta 0
-or above) or DPM-Solver++ (2M), `strength`, `save_memory`, YUV420 output.
-The fused mode, `piecewise` and `shape_bucketing` are not ported.
+"""VExpressPipeline: streamed, fused and window-parallel inference.
+Counterpart of vexpress_tpu/pipelines/pipeline.py in `mode="streamed"`,
+`"fused"` and `"sharded"`, on the exact unbucketed path the JAX package takes
+off the TPU: DDIM (eta 0 or above) or DPM-Solver++ (2M), `strength`,
+`save_memory`, YUV420 output. `piecewise` and `shape_bucketing` are not
+ported.
 
 The window set is a static [N, context_frames] index table computed once
 (the reference builds its context queue with step=0 for every denoise step).
@@ -15,6 +16,12 @@ the reference's sequential per-window loop. `mode="sharded"` spreads the
 window table over the ranks of a process group (vexpress_torch.parallel):
 each rank blends its rows, the accumulators are summed over the group, and
 every rank applies the same sampler step to the same latents.
+
+Every mode runs one step body (`_build_denoise_step`), which takes the grid
+index as a device tensor and reads nothing on the host. `mode="fused"`
+keeps it in `_step_cache` as a `FusedStep` over static buffers: on a CUDA
+device captured once as a CUDA graph and replayed at every timestep (the
+counterpart of JAX's one compiled program a step), on the CPU called.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import dataclasses
 import itertools
 import os
 import time
+import weakref
 from typing import Any, Callable, Dict, Optional, Set
 
 import numpy as np
@@ -37,6 +45,7 @@ from ..models.unet_3d import DenoisingUNet3D, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.vkps_guider import VKpsGuider
 from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+from ..ops import flash, launches
 from .audio import audio_frame_windows
 from .context import compute_context_windows
 from .media import _median_core, halo_index, median_filter_3d_chunked, to_uint8, to_yuv420
@@ -125,12 +134,13 @@ def decode_packed(decode: Callable[[torch.Tensor], torch.Tensor], latents: torch
     return out.result()
 
 
-def blend_windows(predict_fn, latents: torch.Tensor, t: int,
-                  cond_of_group: Callable[[int], Any], win_idx: np.ndarray,
-                  win_w: np.ndarray) -> torch.Tensor:
+def blend_windows(predict_fn, latents: torch.Tensor, t,
+                  cond_of_group: Callable[[int], Any], win_idx, win_w) -> torch.Tensor:
     """The fp32 sum over window groups of 1/count-weighted predictions:
     `predict_fn(lat, t, w_idx, cond_of_group(gi)) -> pred` maps group gi's
-    (g, win, h, w, 4) window latents to CFG-combined predictions."""
+    (g, win, h, w, 4) window latents to CFG-combined predictions. The tables
+    (`_window_tables`) are numpy arrays, uploaded here, or tensors already
+    on the latents' device, which the pipeline's step passes."""
     idx = torch.as_tensor(win_idx, device=latents.device)
     weights = torch.as_tensor(win_w, device=latents.device)
     acc = torch.zeros_like(latents, dtype=torch.float32)
@@ -166,6 +176,95 @@ def build_blended_denoise_step(
 
 def _module_tensors(mod: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return dict(itertools.chain(mod.named_parameters(), mod.named_buffers()))
+
+
+class FusedStep:
+    """The fused mode's denoise step: a step body (`_build_denoise_step`)
+    over static buffers, which each call copies its inputs into (the
+    conditioning once a pipeline call, through `load`).
+
+    On a CUDA device the first call is the capture's warm-up: it runs the
+    body once on a side stream, which is that call's step, and then
+    captures the body as one CUDA graph (`graph`); every later call, in this
+    pipeline call or the next with the same cache key, replays the graph
+    and adds the kernel launches the capture recorded to `ops.launches`, so
+    that the counts are those of the kernels that ran. A failed capture or
+    replay raises. On the CPU every call runs the body.
+
+    The entry keeps the denoising UNet's parameters and buffers as it built
+    them (`weights`), so their memory cannot be reused while the graph may
+    read it; `serves` tells whether the module still holds them."""
+
+    def __init__(self, step: Callable, unet: torch.nn.Module):
+        self.step = step
+        self.unet = weakref.ref(unet)
+        self.weights = {k: v.detach() for k, v in _module_tensors(unet).items()}
+        self.static: Optional[Dict[str, Any]] = None
+        self.graph = None
+        self.record = None
+        self.out = None
+        self.replays = 0
+        self.capture_s: Optional[float] = None  # the warm-up step and the capture
+
+    def serves(self, unet: torch.nn.Module) -> bool:
+        """Whether `unet` is the module the entry was built on, each of its
+        parameters and buffers still in the storage the graph reads."""
+        now = _module_tensors(unet)
+        return (self.unet() is unet and now.keys() == self.weights.keys()
+                and all(v.data_ptr() == self.weights[k].data_ptr() for k, v in now.items()))
+
+    def load(self, latents: torch.Tensor, cond, with_noise: bool) -> None:
+        """Copy a pipeline call's conditioning (kps_feat, audio_tok,
+        ref_feats, ref_scale, audio_scale) into the static buffers, made at
+        the first call in the shapes of this one."""
+        flat = (cond[0], cond[1], *cond[2], cond[3], cond[4])
+        if self.static is None:
+            dev = latents.device
+            self.static = dict(
+                latents=torch.empty_like(latents),
+                idx=torch.zeros((), dtype=torch.long, device=dev),
+                noise=torch.empty_like(latents) if with_noise else None,
+                prev_x0=torch.empty_like(latents),
+                has_prev=torch.zeros((), dtype=torch.bool, device=dev),
+                cond=[torch.empty_like(c) for c in flat])
+        for dst, src in zip(self.static["cond"], flat):
+            dst.copy_(src)
+
+    def _body(self):
+        s = self.static
+        c = s["cond"]
+        cond = (c[0], c[1], tuple(c[2:-2]), c[-2], c[-1])
+        return self.step(s["latents"], s["idx"], cond, s["noise"], s["prev_x0"], s["has_prev"])
+
+    def __call__(self, latents, idx: int, noise, prev_x0, has_prev):
+        s = self.static
+        for name, src in (("latents", latents), ("noise", noise), ("prev_x0", prev_x0),
+                          ("has_prev", has_prev)):
+            if src is not None and src is not s[name]:
+                s[name].copy_(src)
+        s["idx"].fill_(idx)
+        if self.graph is not None:
+            self.graph.replay()
+            launches.replay(self.record)
+            self.replays += 1
+            return self.out
+        if latents.device.type != "cuda":
+            return self._body()
+        t0 = time.perf_counter()
+        dev = latents.device
+        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            first = self._body()
+        main.wait_stream(side)
+        for t in first:
+            t.record_stream(main)  # the caller reads them on the main stream
+        graph = torch.cuda.CUDAGraph()
+        with launches.recording() as record, torch.cuda.graph(graph):
+            self.out = self._body()
+        torch.cuda.synchronize(dev)
+        self.graph, self.record, self.capture_s = graph, record, time.perf_counter() - t0
+        return first
 
 
 @dataclasses.dataclass
@@ -208,6 +307,7 @@ class VExpressPipeline:
         self.scheduler = scheduler or DDIMScheduler()
         self.timings: Dict[str, float] = {}
         self.released: Set[str] = set()  # conditioning modules now on their host copies
+        self._step_cache: Dict[tuple, FusedStep] = {}  # mode="fused": a step a cache key
         self.last_released_cond_mib = 0.0
         self._host_cond: Dict[str, Dict[str, torch.Tensor]] = {}
 
@@ -345,7 +445,8 @@ class VExpressPipeline:
                 lat = torch.cat([lat, lat], dim=0)
                 kps = torch.cat([torch.zeros_like(kps), kps], dim=0)
                 aud = torch.cat([torch.zeros_like(aud), aud], dim=0)
-            ts = torch.full((lat.shape[0],), int(t), dtype=torch.long, device=lat.device)
+            # t: a 0-d int64 tensor on the device (the pipeline's step) or an int
+            ts = torch.as_tensor(t, dtype=torch.long, device=lat.device).expand(lat.shape[0])
             pred = self.denoising_unet(lat, ts, aud, ref_feats, kps, ref_scale, audio_scale,
                                        zero_uncond_kv=do_cfg)
             if do_cfg:
@@ -355,19 +456,28 @@ class VExpressPipeline:
 
         return predict
 
-    def _denoise_streamed(self, latents, timesteps, windows, inv_counts, cond,
-                          num_inference_steps, guidance_scale, window_group, sampler="ddim",
-                          eta=0.0, generator=None, kps_raw_host=None, progress_callback=None,
-                          mesh=None):
-        """The denoise loop. `cond` = (kps_feat, audio_tok, ref_feats,
-        ref_scale, audio_scale); with `kps_raw_host` (save_memory) kps_feat is
-        None and each window group's guider features are computed from its
-        raw frames when the group runs: those frames are gathered on the host
-        and kept on the device while the window table's frames fit
+    def _build_denoise_step(self, windows, inv_counts, num_inference_steps, guidance_scale,
+                            window_group, eta=0.0, sampler="ddim", mesh=None,
+                            kps_raw_host=None):
+        """One denoise step over every context window, the step body of
+        every mode (JAX's `_build_denoise_step`): `step(latents, idx, cond,
+        noise, prev_x0, has_prev) -> (latents, prev_x0, has_prev)`.
+
+        `idx` is the grid index, a 0-d int64 tensor on the device; it picks
+        the timestep and the sampler's constants out of tables that are put
+        on the device here, as are the window tables. `cond` = (kps_feat,
+        audio_tok, ref_feats, ref_scale, audio_scale); `noise` is DDIM's
+        unit noise (eta > 0, else None); `prev_x0` and `has_prev` (a 0-d
+        bool tensor) are DPM-Solver++'s state, which DDIM passes through. A
+        call reads nothing on the host and copies nothing to the device, so
+        it can be captured in a CUDA graph; except that with `kps_raw_host`
+        (save_memory, kps_feat None) each window group's guider features
+        come from its raw frames, gathered on the host and kept on the
+        device while the window table's frames fit
         VEXPRESS_SAVEMEM_DEV_CACHE_MB (2048 by default), else uploaded at
-        every step. With a `mesh` this rank runs its rows of the padded
-        window table (so save_memory computes the guider features of its own
-        groups only) and the blend is summed over the group."""
+        every step; and a `mesh` runs this rank's rows of the padded window
+        table and sums the blend over the group."""
+        dev = self.device
         if mesh is None:
             win_idx, win_w = _window_tables(windows, inv_counts, window_group)
             blend = blend_windows
@@ -378,11 +488,14 @@ class VExpressPipeline:
 
             def blend(*a):
                 return blend_sharded(*a, mesh)
-        kps_feat, *rest = cond
-        if kps_raw_host is None:
-            def cond_of_group(_gi):
-                return (kps_feat, *rest, False)
+        idx_dev, w_dev = torch.as_tensor(win_idx, device=dev), torch.as_tensor(win_w, device=dev)
+        grid = torch.as_tensor(self.scheduler.timesteps(num_inference_steps), device=dev)
+        if sampler == "dpmpp_2m":
+            dpm_step = DPMSolverMultistepScheduler(self.scheduler.config).build_step(
+                num_inference_steps, device=dev)
         else:
+            ddim_step = self.scheduler.build_step(num_inference_steps, eta=eta, device=dev)
+        if kps_raw_host is not None:
             budget = int(os.environ.get("VEXPRESS_SAVEMEM_DEV_CACHE_MB", "2048")) << 20
             table_bytes = kps_raw_host.dtype.itemsize * kps_raw_host[0].size * win_idx.size
             raw_groups = None
@@ -390,33 +503,56 @@ class VExpressPipeline:
                 raw_groups = [self._upload_kps(kps_raw_host[win_idx[gi]])
                               for gi in range(win_idx.shape[0])]
 
-            def cond_of_group(gi):
-                raw = (raw_groups[gi] if raw_groups is not None
-                       else self._upload_kps(kps_raw_host[win_idx[gi]]))
-                return (self._kps_features_window(raw), *rest, True)
-
+            def raw_of_group(gi):
+                return (raw_groups[gi] if raw_groups is not None
+                        else self._upload_kps(kps_raw_host[win_idx[gi]]))
         predict = self._predict_fn(guidance_scale)
-        if sampler == "dpmpp_2m":
-            dpm_step = DPMSolverMultistepScheduler(self.scheduler.config).build_step(
-                num_inference_steps)
-        # the grid index of the first step: > 0 when `strength` trimmed the
-        # schedule (the DPM tables cover the full grid)
-        idx0 = num_inference_steps - len(timesteps)
-        prev_x0, has_prev = torch.zeros_like(latents), False
-        for i, t in enumerate(timesteps):
-            t = int(t)
-            acc = blend(predict, latents, t, cond_of_group, win_idx, win_w)
-            if sampler == "dpmpp_2m":
-                latents, prev_x0, has_prev = dpm_step(acc, idx0 + i, latents, prev_x0, has_prev)
+
+        def step(latents, idx, cond, noise=None, prev_x0=None, has_prev=None):
+            if kps_raw_host is None:
+                def cond_of_group(_gi):
+                    return (*cond, False)
             else:
-                noise = (None if eta == 0.0 else
-                         torch.randn(latents.shape, generator=generator, device=latents.device))
-                latents = self.scheduler.step(acc, t, latents, num_inference_steps, eta=eta,
-                                              noise=noise)
+                def cond_of_group(gi):
+                    return (self._kps_features_window(raw_of_group(gi)), *cond[1:], True)
+            acc = blend(predict, latents, grid.take(idx), cond_of_group, idx_dev, w_dev)
+            if sampler == "dpmpp_2m":
+                return dpm_step(acc, idx, latents, prev_x0, has_prev)
+            return ddim_step(acc, idx, latents, noise), prev_x0, has_prev
+
+        return step
+
+    def _denoise(self, run, latents, timesteps, num_inference_steps, eta=0.0, generator=None,
+                 progress_callback=None):
+        """The denoise loop of every mode: `run(latents, i, noise, prev_x0,
+        has_prev)` takes one step at grid index i. The grid index of the
+        first step is > 0 when `strength` trimmed the schedule (the step's
+        tables cover the full grid). With eta > 0 each step's unit noise is
+        drawn here from `generator`, in the same order in every mode."""
+        idx0 = num_inference_steps - len(timesteps)
+        prev_x0 = torch.zeros_like(latents)
+        has_prev = torch.zeros((), dtype=torch.bool, device=latents.device)
+        for i, t in enumerate(timesteps):
+            noise = (None if eta == 0.0 else
+                     torch.randn(latents.shape, generator=generator, device=latents.device))
+            latents, prev_x0, has_prev = run(latents, idx0 + i, noise, prev_x0, has_prev)
             if progress_callback is not None:
                 self._sync()
-                progress_callback(i, t)
+                progress_callback(i, int(t))
         return latents
+
+    def _fused_step(self, key, build: Callable[[], Callable]) -> "FusedStep":
+        """The cached fused step of `key`, made from `build()` on a miss.
+        First every entry whose graph no longer reads the denoising UNet's
+        weights is evicted: a replaced module, parameter or buffer (a new
+        storage) evicts it, an in-place load (`load_state_dict`, `copy_`)
+        does not, as JAX evicts its params-bound steps when `params` is
+        reassigned."""
+        for k in [k for k, e in self._step_cache.items() if not e.serves(self.denoising_unet)]:
+            del self._step_cache[k]
+        if key not in self._step_cache:
+            self._step_cache[key] = FusedStep(build(), self.denoising_unet)
+        return self._step_cache[key]
 
     def _upload_kps(self, frames: np.ndarray) -> torch.Tensor:
         """Raw kps frames to the device: uint8 as they are, float in the
@@ -448,7 +584,7 @@ class VExpressPipeline:
         num_pad_audio_frames: int = 2,
         seed: int = 42,
         window_group: int = 1,
-        mode: str = "streamed",  # or "sharded": the windows spread over `mesh`'s ranks
+        mode: str = "streamed",  # "fused": one captured step; "sharded": over `mesh`'s ranks
         mesh=None,  # vexpress_torch.parallel.Mesh; sharded mode's default: create_mesh()
         save_memory: bool = False,
         return_latents: bool = False,
@@ -471,14 +607,21 @@ class VExpressPipeline:
         once conditioning is done (`last_released_cond_mib`); the next call
         brings them back.
 
+        `mode="fused"` runs the same steps as streamed through the cached
+        `FusedStep` of the call's settings (`_step_cache`): on a CUDA device
+        one CUDA graph, captured at the key's first call and replayed at
+        every timestep after that; on the CPU the step called. It takes no
+        `save_memory`, as in JAX.
+
         `mode="sharded"`: every rank of the mesh's group makes this call with
         the same arguments; each computes the conditioning, runs its share of
         the windows and keeps latents equal to every other rank's. Rank 0
         returns the video; the others return None (the latents as well under
         `return_latents`)."""
-        if mode not in ("streamed", "sharded"):
-            raise NotImplementedError(f"mode={mode!r}: only 'streamed' and 'sharded' are "
-                                      "ported (the fused mode is on ROADMAP's Not-to-port list)")
+        if mode not in ("streamed", "fused", "sharded"):
+            raise ValueError(f"unknown mode {mode!r} (use 'streamed', 'fused' or 'sharded')")
+        if save_memory and mode not in ("streamed", "sharded"):
+            raise ValueError("save_memory requires mode='streamed' or 'sharded'")
         if mode == "sharded" and mesh is None:
             from ..parallel.mesh import create_mesh
 
@@ -549,13 +692,33 @@ class VExpressPipeline:
                 # the full grid's spacing
                 init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
                 timesteps = timesteps[max(num_inference_steps - init_timestep, 0):]
-            latents = self._denoise_streamed(
-                latents, timesteps, windows, inv_counts,
-                (kps_feat, audio_tok, ref_feats, ref_scale, audio_scale),
-                num_inference_steps, guidance_scale, window_group, sampler=sampler, eta=eta,
-                generator=gen, kps_raw_host=kps_images if save_memory else None,
-                progress_callback=progress_callback, mesh=mesh if mode == "sharded" else None)
+            cond = (kps_feat, audio_tok, ref_feats, ref_scale, audio_scale)
+            step_args = (windows, inv_counts, num_inference_steps, guidance_scale, window_group,
+                         eta, sampler)
+            if mode == "fused":
+                # JAX's key, plus what sets the static buffers' shapes, the
+                # scheduler whose tables the step holds, and the kernel the
+                # graph launches (K1, or K2 under VEXPRESS_FLASH_LITE)
+                key = ("fused", video_length, context_frames, context_overlap,
+                       num_inference_steps, float(guidance_scale), window_group, float(eta),
+                       sampler, height, width, num_pad_audio_frames, self.scheduler.config,
+                       flash.FLASH_LITE)
+                run = self._fused_step(key, lambda: self._build_denoise_step(*step_args))
+                run.load(latents, cond, with_noise=eta != 0.0)
+                uncaptured = run.graph is None
+            else:
+                step = self._build_denoise_step(
+                    *step_args, mesh=mesh if mode == "sharded" else None,
+                    kps_raw_host=kps_images if save_memory else None)
+                grid = torch.arange(num_inference_steps, device=dev)
+
+                def run(lat, i, *state):
+                    return step(lat, grid[i], cond, *state)
+            latents = self._denoise(run, latents, timesteps, num_inference_steps, eta=eta,
+                                    generator=gen, progress_callback=progress_callback)
             t0 = mark("denoise", t0)
+            if mode == "fused" and uncaptured and run.graph is not None:  # captured in this call
+                self.timings["fused warm-up step and capture"] = run.capture_s
             if return_latents:
                 return latents.cpu().numpy()
             if mode == "sharded" and mesh.rank != 0:

@@ -194,13 +194,19 @@ def nonfinite_outputs(pipe: VExpressPipeline) -> Iterator[Callable[[], list]]:
     block (uint8 video cannot show a non-finite value). The hooks keep one
     flag a module on the output's device, so no call waits on the host; the
     function yielded reads them, once the timed stretch is over, as the
-    names of the modules whose output held a non-finite value."""
+    names of the modules whose output held a non-finite value. A flag is
+    ORed in place, so a denoise step captured as a CUDA graph (the fused
+    mode; its hooks run at the warm-up step and the capture) ORs into it at
+    every replay."""
     flags: Dict[str, torch.Tensor] = {}
 
     def watch(name):
         def hook(_mod, _inp, out):
             hit = ~torch.isfinite(out).all()
-            flags[name] = hit if name not in flags else flags[name] | hit
+            if name in flags:
+                flags[name] |= hit
+            else:
+                flags[name] = hit
         return hook
 
     hooks = [pipe.denoising_unet.register_forward_hook(watch("denoising_unet")),
